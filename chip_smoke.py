@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (``mfgp_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py          # from the repository root, one H100
+
+1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
+   versions; TF32 is switched off for cuBLAS and cuDNN.
+2. Build: nvcc compiles ``mfgp_tpu_torch/ops/csrc/*.cu`` for sm_90a.
+3. Kernels: each hand-written kernel against its plain PyTorch version on
+   the card, both base kernels, at small ragged shapes.
+4. Unit: the benchmark unit of ``bench.py`` at full size (N=20,000
+   training points, the M=10,571-point grid, F=3, D=3, float32) for rbf and
+   matern32: ``nlml_value_grad_state_inv(inv_mode="highest")`` then
+   ``predict_fused``. The NLML is held against the recorded float64 NumPy
+   values, the gradient against the plain float64 path, and the launch
+   counters show that all three kernels ran.
+5. Times: the unit's wall time and phases, and each kernel beside its plain
+   version at the unit's shapes, on CUDA events.
+
+Every phase prints one JSON line. A failed build or launch raises; a failed
+check is reported and the script exits 1 after the last phase. The last
+line, on success only, is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+It needs a CUDA device and the repository around it; without either it
+exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+KERNELS = (
+    ("ar1_cov_fused", "mfgp_tpu_torch/ops/csrc/ar1_cov.cu",
+     "mfgp_tpu/ops/pallas_kernels.py:121"),
+    ("syrk_grad_fused", "mfgp_tpu_torch/ops/csrc/syrk_grad.cu",
+     "mfgp_tpu/ops/pallas_kernels.py:486"),
+    ("posterior_fused", "mfgp_tpu_torch/ops/csrc/posterior.cu",
+     "mfgp_tpu/ops/pallas_kernels.py:300"),
+)
+BASES = ("rbf", "matern32")
+FAILURES: list[str] = []
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(name: str, ok: bool, detail: str) -> None:
+    print(f"check {'ok  ' if ok else 'FAIL'} {name}: {detail}", flush=True)
+    if not ok:
+        FAILURES.append(f"{name}: {detail}")
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def allclose(a, b, rtol: float, atol: float) -> bool:
+    a, b = a.double(), b.double()
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int = 3) -> float:
+    """Mean milliseconds per call on CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def kernel_checks(torch, ck, mf, dev):
+    """Phase 3: each kernel against its plain version (float64 reference
+    on the same inputs) at small ragged shapes; returns the max abs error
+    per kernel over both bases."""
+    from bench import _theta, build_problem
+
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(0)
+    errs = {name: 0.0 for name, _, _ in KERNELS}
+    for kern in BASES:
+        # B1: N=1000 x M=1537 (neither a multiple of the 32-wide tile), F=3,
+        # noise on the diagonal of the square Gram; 1e-5 atol
+        N, M, D, F = 1000, 1537, 3, 3
+        X1 = rng.normal(size=(N, D))
+        X2 = rng.normal(size=(M, D))
+        f1 = rng.integers(0, F, N)
+        f2 = rng.integers(0, F, M)
+        var = np.array([2.0, 1.5, 0.7])
+        ls = rng.uniform(0.5, 2.0, (F, D))
+        rho = np.array([1.1, 0.9])
+        noise = rng.uniform(0.1, 0.5, N)
+
+        def t(a, dt):
+            return torch.as_tensor(a, dtype=dt, device=dev)
+
+        fi1, fi2 = t(f1, torch.long), t(f2, torch.long)
+        for X2_, fi2_, nz, label in ((X2, fi2, None, "cross"),
+                                     (X1, fi1, noise, "gram+noise")):
+            args32 = (t(X1, f32), fi1, t(X2_, f32), fi2_, t(var, f32),
+                      t(ls, f32), t(rho, f32))
+            args64 = (t(X1, f64), fi1, t(X2_, f64), fi2_, t(var, f64),
+                      t(ls, f64), t(rho, f64))
+            got = ck.ar1_cov_fused(*args32, noise_diag=None if nz is None
+                                   else t(nz, f32), kern=kern)
+            ref = ck.ar1_cov_fused_plain(*args64, noise_diag=None if nz is None
+                                         else t(nz, f64), kern=kern)
+            torch.cuda.synchronize()
+            e = max_err(got, ref)
+            errs["ar1_cov_fused"] = max(errs["ar1_cov_fused"], e)
+            check(f"B1 {kern} {label} {tuple(got.shape)}", e <= 1e-5,
+                  f"max abs err {e:.3e} (atol 1e-5)")
+
+        # B3: N=2000 x M=1500, random lower-triangular Linv; 2e-5 rtol/atol
+        N, M = 2000, 1500
+        X = rng.random((N, D)) * 5
+        fid = rng.integers(0, F, N)
+        Xs = rng.random((M, D)) * 5
+        fs = np.full(M, F - 1)
+        Linv = np.tril(rng.random((N, N)))
+        alpha = rng.random(N)
+        var = np.array([1.5, 1.0, 0.5])
+        ls = rng.uniform(0.5, 2.0, (F, D))
+        rho = np.array([0.9, 0.8])
+        fi, fsi = t(fid, torch.long), t(fs, torch.long)
+        Lf = t(Linv, f32)
+        af = t(alpha, f32)
+        Xf, Xsf = t(X, f32), t(Xs, f32)
+        mu, quad = ck.posterior_fused(Lf, af, Xf, fi, Xsf, fsi, t(var, f32),
+                                      t(ls, f32), t(rho, f32), kern=kern)
+        # the reference sees the same float32 values, evaluated in float64
+        mu_r, quad_r = ck.posterior_fused_plain(
+            Lf.double(), af.double(), Xf.double(), fi, Xsf.double(), fsi,
+            t(var, f64), t(ls, f64), t(rho, f64), kern=kern)
+        torch.cuda.synchronize()
+        e = max(max_err(mu, mu_r), max_err(quad, quad_r))
+        errs["posterior_fused"] = max(errs["posterior_fused"], e)
+        ok = (allclose(mu, mu_r, 2e-5, 2e-5)
+              and allclose(quad, quad_r, 2e-5, 2e-5))
+        rel = max(max_err(mu, mu_r) / float(mu_r.abs().max()),
+                  max_err(quad, quad_r) / float(quad_r.abs().max()))
+        check(f"B3 {kern} N={N} M={M}", ok,
+              f"max abs err {e:.3e}, max err / max |ref| {rel:.3e} "
+              "(rtol 2e-5, atol 2e-5)")
+
+        # B2: N=1500 from the benchmark's problem, conditioned in float64;
+        # the kernel gets float32 Linv/alpha, the reference the same values
+        # in float64; 2e-3 rtol/atol
+        N = 1500
+        Xn, fidn, yn, _, _ = build_problem(N, 16, seed=1)
+        v, l, r, nz = _theta()
+        p64 = mf.params_from_numpy(np.log(v), np.log(l), r, np.log(nz), dev,
+                                   f64)
+        Xd, fd, yd = t(Xn, f64), t(fidn, torch.long), t(yn, f64)
+        _, _, st = mf.nlml_value_grad_state_inv(p64, Xd, fd, yd, kernel=kern,
+                                                jitter=1e-6)
+        L32, a32 = st.Linv.float(), st.alpha.float()
+        got = ck.syrk_grad_fused(L32, a32, Xd.float(), fd, t(v, f32),
+                                 t(l, f32), t(r, f32), t(nz, f32), kern=kern)
+        ref = ck.syrk_grad_fused_plain(L32.double(), a32.double(), Xd, fd,
+                                       t(v, f64), t(l, f64), t(r, f64),
+                                       t(nz, f64), kern=kern)
+        torch.cuda.synchronize()
+        e = max(max_err(g, h) for g, h in zip(got, ref))
+        errs["syrk_grad_fused"] = max(errs["syrk_grad_fused"], e)
+        ok = all(allclose(g, h, 2e-3, 2e-3) for g, h in zip(got, ref))
+        check(f"B2 {kern} N={N}", ok,
+              f"max abs err {e:.3e} (rtol 2e-3, atol 2e-3)")
+    emit("kernels", max_abs_err=errs)
+    return errs
+
+
+def run_unit(torch, ck, mf, problem, kern: str, nlml_ref: float):
+    """Phase 4: the benchmark unit at full size, checked."""
+    Xt, ft, yt, gt, gft, params = problem
+    before = dict(ck.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val, grad, state = mf.nlml_value_grad_state_inv(
+        params, Xt, ft, yt, kernel=kern, jitter=1e-6, inv_mode="highest")
+    mu, var = mf.predict_fused(params, state, gt, gft, kernel=kern)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    nlml = float(val)
+    rel = abs(nlml - nlml_ref) / abs(nlml_ref)
+    check(f"unit {kern} nlml", rel <= 1e-3,
+          f"{nlml:.4f} vs recorded f64 {nlml_ref}: rel err {rel:.3e} "
+          "(<= 1e-3)")
+    finite = all(bool(torch.isfinite(g).all()) for g in grad) and bool(
+        torch.isfinite(mu).all()) and bool(torch.isfinite(var).all())
+    check(f"unit {kern} finite", finite, "gradient, mu and var finite")
+    pos = float((var > 0).double().mean())
+    check(f"unit {kern} var>0", pos >= 0.999,
+          f"share of grid with var > 0: {pos:.6f} (>= 0.999)")
+    check(f"unit {kern} launches", all(n > 0 for n in launched.values()),
+          f"kernel launches in this unit: {launched}")
+
+    # gradient against the plain path (structure-aware syrk + contractions)
+    # at the same N, on the same float32 Linv/alpha evaluated in float64:
+    # every entry within 2e-3 relative. The plain float32 path's own errors
+    # are printed beside the kernel's (at this N its sequential float32
+    # K^-1 sums lose the rbf g_logvar to a few per cent).
+    args = (state.Linv, state.alpha, Xt, ft, params.variances,
+            params.lengthscales, params.rhos, params.noises)
+    ref = ck.syrk_grad_fused_plain(*(a.double() if a.is_floating_point()
+                                     else a for a in args), kern=kern)
+    plain32 = ck.syrk_grad_fused_plain(*args, kern=kern)
+    got = (grad.log_variances, grad.log_lengthscales, grad.log_noises)
+
+    def errs(gs):
+        norm = max(max_err(g, h) / float(h.abs().max())
+                   for g, h in zip(gs, ref))
+        comp = max(float(((g.double() - h).abs() / h.abs()).max())
+                   for g, h in zip(gs, ref))
+        return norm, comp
+
+    gnorm, gcomp = errs(got)
+    pnorm, pcomp = errs(plain32)
+    check(f"unit {kern} gradient", gcomp <= 2e-3,
+          f"max rel err vs plain f64 {gcomp:.3e} (rtol 2e-3; plain f32 "
+          f"path {pcomp:.3e}); max |err| / max |ref| per field {gnorm:.3e} "
+          f"(plain f32 {pnorm:.3e})")
+    emit("unit", base=kern, N=int(Xt.shape[0]), M=int(gt.shape[0]),
+         nlml=nlml, nlml_rel_err=rel, grad_normwise_err=gnorm,
+         grad_componentwise_err=gcomp, plain_f32_grad_normwise_err=pnorm,
+         plain_f32_grad_componentwise_err=pcomp, var_pos_share=pos,
+         launches=launched, first_call_s=first_s, peak_mem_gb=peak_gb,
+         grad=[g.double().cpu().numpy().round(6).tolist() for g in got],
+         grad_ref=[h.cpu().numpy().round(6).tolist() for h in ref])
+    del ref, plain32
+    return state
+
+
+def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
+    """Phase 5: wall time of the unit, its phases, and each kernel beside
+    its plain version at the unit's shapes (CUDA events)."""
+    Xt, ft, yt, gt, gft, p = problem
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, st = mf.nlml_value_grad_state_inv(p, Xt, ft, yt, kernel=kern,
+                                                jitter=1e-6)
+        mf.predict_fused(p, st, gt, gft, kernel=kern)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del st
+
+    # the unit's steps one by one, as _nlml_vg_core + predict_fused run them
+    v, ls, rho, nz = p.variances, p.lengthscales, p.rhos, p.noises
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    Kn = cov.mf_train_cov(v, ls, rho, nz, Xt, ft, 1e-6, kern)
+    ev[1].record()
+    L = la.chol(Kn)
+    del Kn
+    ev[2].record()
+    Linv = la.tri_inv_recursive(L)
+    ev[3].record()
+    z = la.tri_lower_matmul(Linv, yt[:, None])
+    alpha = la.tri_lower_matmul_right(z.reshape(1, -1), Linv).reshape(-1)
+    la.logdet_from_chol(L)
+    del L
+    ev[4].record()
+    ck.syrk_grad_fused(Linv, alpha, Xt, ft, v, ls, rho, nz, kern=kern)
+    ev[5].record()
+    mf.predict_fused(p, state, gt, gft, kernel=kern)
+    ev[6].record()
+    torch.cuda.synchronize()
+    names = ("assembly", "chol", "tri_inv", "alpha_logdet", "gradient",
+             "posterior")
+    phases = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    del Linv, alpha, z
+
+    noise = nz[ft] + 1e-6
+    S, a = state.Linv, state.alpha
+    runs = {
+        "ar1_cov_fused": (
+            lambda: ck.ar1_cov_fused(Xt, ft, Xt, ft, v, ls, rho, noise, kern),
+            lambda: ck.ar1_cov_fused_plain(Xt, ft, Xt, ft, v, ls, rho, noise,
+                                           kern)),
+        "syrk_grad_fused": (
+            lambda: ck.syrk_grad_fused(S, a, Xt, ft, v, ls, rho, nz, kern),
+            lambda: ck.syrk_grad_fused_plain(S, a, Xt, ft, v, ls, rho, nz,
+                                             kern)),
+        "posterior_fused": (
+            lambda: ck.posterior_fused(S, a, Xt, ft, gt, gft, v, ls, rho,
+                                       kern),
+            lambda: ck.posterior_fused_plain(S, a, Xt, ft, gt, gft, v, ls,
+                                             rho, kern)),
+    }
+    kernel_ms = {}
+    for name, (fused, plain) in runs.items():
+        # plain, kernel, kernel, plain: compare within one card, in turns
+        p1 = cuda_ms(torch, plain, reps=1)
+        k1 = cuda_ms(torch, fused)
+        k2 = cuda_ms(torch, fused)
+        p2 = cuda_ms(torch, plain, reps=1)
+        kernel_ms[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                           "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+    # the unit's B1 and B3 outputs against their plain versions in float64
+    K = ck.ar1_cov_fused(Xt, ft, Xt, ft, v, ls, rho, noise, kern)
+    Kr = ck.ar1_cov_fused_plain(Xt.double(), ft, Xt.double(), ft, v.double(),
+                                ls.double(), rho.double(), noise.double(),
+                                kern)
+    b1_err = max_err(K, Kr)
+    check(f"unit {kern} B1 Gram vs plain f64", allclose(K, Kr, 1e-5, 1e-5),
+          f"max abs err {b1_err:.3e}, max |K| {float(Kr.abs().max()):.3e} "
+          "(rtol 1e-5, atol 1e-5)")
+    del K, Kr
+    mu, quad = ck.posterior_fused(S, a, Xt, ft, gt, gft, v, ls, rho, kern)
+    mu_r, quad_r = ck.posterior_fused_plain(
+        S.double(), a.double(), Xt.double(), ft, gt.double(), gft,
+        v.double(), ls.double(), rho.double(), kern)
+    mu_p, quad_p = ck.posterior_fused_plain(S, a, Xt, ft, gt, gft, v, ls,
+                                            rho, kern)
+
+    def normwise(m, q):
+        return max(max_err(m, mu_r) / float(mu_r.abs().max()),
+                   max_err(q, quad_r) / float(quad_r.abs().max()))
+
+    # at N=20,000 each V entry is a float32 sum of ~1e4 signed terms; the
+    # plain float32 version's own error is printed beside the kernel's
+    b3_err, b3_plain_err = normwise(mu, quad), normwise(mu_p, quad_p)
+    check(f"unit {kern} B3 grid vs plain f64", b3_err <= 1e-4,
+          f"max |err| / max |ref| {b3_err:.3e} (<= 1e-4); plain f32 "
+          f"{b3_plain_err:.3e}")
+    emit("times", base=kern, unit_wall_s=walls, phases_ms=phases,
+         kernel_ms=kernel_ms, b1_unit_err=b1_err, b3_unit_err=b3_err,
+         b3_plain_f32_err=b3_plain_err)
+    return kernel_ms
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this run "
+              "needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from bench import (BASELINE_CPU_NLML, BASELINE_CPU_NLML_MATERN32, M_GRID,
+                       N_TRAIN, _theta, build_problem)
+    from mfgp_tpu_torch.models import mfgp as mf
+    from mfgp_tpu_torch.ops import build
+    from mfgp_tpu_torch.ops import covariance as cov
+    from mfgp_tpu_torch.ops import cuda_kernels as ck
+    from mfgp_tpu_torch.ops import linalg as la
+
+    # the port's precision policy (set by mfgp_tpu_torch.ops), stated here
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+
+    t0 = time.perf_counter()
+    lib_path = build.build()
+    build.load_library()
+    log = (lib_path.parent / "build.log").read_text().splitlines()
+    emit("build", seconds=time.perf_counter() - t0, library=str(lib_path),
+         ptxas=[ln.strip() for ln in log
+                if "registers" in ln or "spill" in ln or "Compiling" in ln])
+
+    errs = kernel_checks(torch, ck, mf, dev)
+
+    X, fid, y, grid, gfid = build_problem(N_TRAIN, M_GRID)
+    v, l, r, nz = _theta()
+    params = mf.params_from_numpy(np.log(v), np.log(l), r, np.log(nz), dev,
+                                  torch.float32)
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    problem = (t(X), t(fid, torch.long), t(y), t(grid),
+               t(gfid, torch.long), params)
+    refs = {"rbf": BASELINE_CPU_NLML, "matern32": BASELINE_CPU_NLML_MATERN32}
+
+    # the main path: both units, launch counters from 0
+    ck.reset_launches()
+    states = {kern: run_unit(torch, ck, mf, problem, kern, refs[kern])
+              for kern in BASES}
+    main_launches = dict(ck.LAUNCHES)
+    check("main path launches", all(n > 0 for n in main_launches.values()),
+          f"{main_launches}")
+
+    times = {kern: unit_times(torch, ck, mf, la, cov, problem, kern,
+                              states[kern]) for kern in BASES}
+    if "jax" in sys.modules:
+        FAILURES.append("jax was imported")
+
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": main_launches[name], "max_abs_err": errs[name],
+         "ms": times["rbf"][name]["ms"],
+         "plain_ms": times["rbf"][name]["plain_ms"]}
+        for name, src, rep in KERNELS]}), flush=True)
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed:",
+              file=sys.stderr)
+        for f in FAILURES:
+            print(f"  {f}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,153 @@
+"""The port's CUDA kernels on the card, each against its plain PyTorch
+version (float64 evaluation of the same float32 inputs where the plain
+float32 version would carry its own rounding), at small ragged shapes.
+
+Every test here is ``cuda``-marked and skips where there is no CUDA
+device. The file imports neither jax nor the JAX package, so on a machine
+with a card and no jax it runs on its own:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mfgp_tpu_torch.models import mfgp as tm
+from mfgp_tpu_torch.ops import covariance as tcov
+from mfgp_tpu_torch.ops import cuda_kernels as ck
+
+pytestmark = pytest.mark.cuda
+KERNELS = ["rbf", "matern32"]
+
+
+@pytest.fixture
+def dev():
+    """The CUDA device, or a skip where there is none (decided at run
+    time, never at import, so every test worker collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def gen():
+    return np.random.default_rng(0)
+
+
+def _t(dev, *arrays, dtype=torch.float32):
+    return [torch.as_tensor(a, dtype=dtype if a.dtype.kind == "f" else None,
+                            device=dev) for a in arrays]
+
+
+def _f64(*tensors):
+    return [t.double() if t.is_floating_point() else t for t in tensors]
+
+
+def test_gate(dev):
+    x = torch.zeros(4, 3, dtype=torch.float32, device=dev)
+    assert tcov.use_cuda_kernels(x, "rbf")
+    assert tcov.use_cuda_kernels(x, "matern32")
+    assert not tcov.use_cuda_kernels(x, "cosine")
+    assert not tcov.use_cuda_kernels(x.double(), "rbf")
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("noise", [False, True])
+def test_ar1_cov_fused(dev, gen, kernel, noise):
+    N, M, D, F = 301, 157, 3, 3  # ragged against the 32-wide tile
+    X1, X2 = gen.normal(size=(N, D)), gen.normal(size=(M, D))
+    f1, f2 = gen.integers(0, F, N), gen.integers(0, F, M)
+    if noise:
+        X2, f2 = X1, f1
+    args = _t(dev, X1, f1, X2, f2, np.array([2.0, 1.5, 0.7]),
+              gen.uniform(0.5, 2.0, (F, D)), np.array([1.1, 0.9]))
+    nz = (torch.as_tensor(gen.uniform(0.1, 0.5, N), dtype=torch.float32,
+                          device=dev) if noise else None)
+    got = ck.ar1_cov_fused(*args, noise_diag=nz, kern=kernel)
+    ref = ck.ar1_cov_fused_plain(*_f64(*args), noise_diag=None if nz is None
+                                 else nz.double(), kern=kernel)
+    torch.testing.assert_close(got.double(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("F", [1, 3])
+def test_syrk_grad_fused(dev, gen, kernel, F):
+    N, D = 333, 3
+    X = gen.random((N, D)) * 4
+    fid = gen.integers(0, F, N)
+    raw = (np.log([1.4, 0.9, 0.6][:F]), np.log(gen.uniform(0.8, 1.8, (F, D))),
+           np.array([0.9, 0.8][:F - 1]), np.log([0.05, 0.03, 0.02][:F]))
+    p = tm.params_from_numpy(*raw, dev, torch.float64)
+    Xd, fd, yd = _t(dev, X, fid, gen.normal(size=N), dtype=torch.float64)
+    _, _, st = tm.nlml_value_grad_state_inv(p, Xd, fd, yd, kernel=kernel,
+                                            jitter=1e-6)
+    args = (st.Linv.float().contiguous(), st.alpha.float(), Xd.float(), fd,
+            p.variances.float(), p.lengthscales.float(), p.rhos.float(),
+            p.noises.float())
+    got = ck.syrk_grad_fused(*args, kern=kernel)
+    ref = ck.syrk_grad_fused_plain(*_f64(*args), kern=kernel)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.double(), r, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_posterior_fused(dev, gen, kernel):
+    N, M, D, F = 300, 130, 3, 3
+    args = _t(dev, np.tril(gen.random((N, N))), gen.random(N),
+              gen.random((N, D)) * 5, gen.integers(0, F, N),
+              gen.random((M, D)) * 5, np.full(M, F - 1),
+              np.array([1.5, 1.0, 0.5]), gen.uniform(0.5, 2.0, (F, D)),
+              np.array([0.9, 0.8]))
+    got = ck.posterior_fused(*args, kern=kernel)
+    ref = ck.posterior_fused_plain(*_f64(*args), kern=kernel)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.double(), r, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_unit_slice_runs_through_the_kernels(dev, gen, kernel):
+    """The unit at a small size in float32 on the card: every kernel is
+    launched, and the result agrees with the float64 plain path."""
+    N, M, D, F = 700, 90, 3, 3
+    X, Xs = gen.random((N, D)) * 6, gen.random((M, D)) * 6
+    fid, fs = gen.integers(0, F, N), np.full(M, F - 1)
+    y = np.sin(X).sum(1) + 0.1 * gen.normal(size=N)
+    raw = (np.log([1.4, 0.9, 0.6]), np.log(gen.uniform(0.8, 1.8, (F, D))),
+           np.array([0.9, 0.8]), np.log([0.05, 0.03, 0.02]))
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        p = tm.params_from_numpy(*raw, dev, dt)
+        Xt, ft, yt, Xst, fst = _t(dev, X, fid, y, Xs, fs, dtype=dt)
+        ck.reset_launches()
+        val, grad, st = tm.nlml_value_grad_state_inv(p, Xt, ft, yt,
+                                                     kernel=kernel,
+                                                     jitter=1e-6)
+        mu, var = tm.predict_fused(p, st, Xst, fst, kernel=kernel)
+        out[dt] = (val, grad, mu, var, dict(ck.LAUNCHES))
+    v32, g32, mu32, var32, launched = out[torch.float32]
+    v64, g64, mu64, var64, none = out[torch.float64]
+    assert all(n > 0 for n in launched.values()), launched
+    assert all(n == 0 for n in none.values()), none  # float64: plain path
+    torch.testing.assert_close(v32.double(), v64, rtol=1e-4, atol=0)
+    for a, b in zip(g32, g64):
+        torch.testing.assert_close(a.double(), b, rtol=2e-3,
+                                   atol=2e-3 * float(b.abs().max()))
+    torch.testing.assert_close(mu32.double(), mu64, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(var32.double(), var64, rtol=1e-3, atol=1e-3)
+
+
+def test_wrappers_raise_instead_of_falling_back(dev, gen):
+    X = torch.as_tensor(gen.normal(size=(50, 3)), dtype=torch.float32,
+                        device=dev)
+    fid = torch.zeros(50, dtype=torch.long, device=dev)
+    v = torch.ones(1, device=dev)
+    ls = torch.ones(1, 3, device=dev)
+    rho = v[:0]
+    with pytest.raises(TypeError, match="float32"):
+        ck.ar1_cov_fused(X.double(), fid, X.double(), fid, v, ls, rho)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        ck.ar1_cov_fused(X, fid, X, fid, v, ls, rho, kern="cosine")
+    with pytest.raises(ValueError, match="not contiguous"):
+        ck.syrk_grad_fused(torch.eye(50, device=dev).T[:, :], v.new_ones(50),
+                           X.T.contiguous().T, fid, v, ls, rho, v)
