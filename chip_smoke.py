@@ -7,15 +7,21 @@
    versions; TF32 is switched off for cuBLAS and cuDNN.
 2. Build: nvcc compiles ``mfgp_tpu_torch/ops/csrc/*.cu`` for sm_90a.
 3. Kernels: each hand-written kernel against its plain PyTorch version on
-   the card, both base kernels, at small ragged shapes.
+   the card, both base kernels, at small shapes ragged against the tiles
+   (B2/B3: N below one 128-wide tile, M of 1 and 130, F of 1 and 3), and
+   the TF32 planes (``tf32_split`` and B1's) against the plain split bit
+   for bit.
 4. Unit: the benchmark unit of ``bench.py`` at full size (N=20,000
    training points, the M=10,571-point grid, F=3, D=3, float32) for rbf and
    matern32: ``nlml_value_grad_state_inv(inv_mode="highest")`` then
    ``predict_fused``. The NLML is held against the recorded float64 NumPy
-   values, the gradient against the plain float64 path, and the launch
-   counters show that all three kernels ran.
-5. Times: the unit's wall time and phases, and each kernel beside its plain
-   version at the unit's shapes, on CUDA events.
+   values, the gradient against the plain float64 path (every entry, and
+   the rbf g_logvar normwise), and the launch counters show that all three
+   kernels ran.
+5. Times: the unit's wall time and phases, each kernel beside its plain
+   version at the unit's shapes, B2's and B3's achieved TFLOP/s, and the
+   TF32 split passes, on CUDA events; the unit's TF32 planes (Linv, Linv^T,
+   B1's S^T) against the plain split bit for bit.
 
 Every phase prints one JSON line. A failed build or launch raises; a failed
 check is reported and the script exits 1 after the last phase. The last
@@ -89,12 +95,78 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def b3_check(torch, ck, dev, rng, kern, N, M, F):
+    """B3 against its plain version evaluated in float64 on the same
+    float32 inputs (random lower-triangular Linv); 2e-5 rtol/atol."""
+    f32, f64 = torch.float32, torch.float64
+
+    def t(a, dt):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    X = rng.random((N, 3)) * 5
+    fid = rng.integers(0, F, N)
+    Xs = rng.random((M, 3)) * 5
+    fs = np.full(M, F - 1)
+    var = np.array([1.5, 1.0, 0.5][:F])
+    ls = rng.uniform(0.5, 2.0, (F, 3))
+    rho = np.array([0.9, 0.8][:F - 1])
+    fi, fsi = t(fid, torch.long), t(fs, torch.long)
+    Lf = t(np.tril(rng.random((N, N))), f32)
+    af, Xf, Xsf = t(rng.random(N), f32), t(X, f32), t(Xs, f32)
+    mu, quad = ck.posterior_fused(Lf, af, Xf, fi, Xsf, fsi, t(var, f32),
+                                  t(ls, f32), t(rho, f32), kern=kern)
+    mu_r, quad_r = ck.posterior_fused_plain(
+        Lf.double(), af.double(), Xf.double(), fi, Xsf.double(), fsi,
+        t(var, f64), t(ls, f64), t(rho, f64), kern=kern)
+    torch.cuda.synchronize()
+    e = max(max_err(mu, mu_r), max_err(quad, quad_r))
+    ok = (allclose(mu, mu_r, 2e-5, 2e-5)
+          and allclose(quad, quad_r, 2e-5, 2e-5))
+    rel = max(max_err(mu, mu_r) / float(mu_r.abs().max()),
+              max_err(quad, quad_r) / float(quad_r.abs().max()))
+    check(f"B3 {kern} N={N} M={M} F={F}", ok,
+          f"max abs err {e:.3e}, max err / max |ref| {rel:.3e} "
+          "(rtol 2e-5, atol 2e-5)")
+    return e
+
+
+def b2_check(torch, ck, mf, dev, kern, N, F):
+    """B2 on the Linv/alpha of the benchmark's problem at N points and F
+    fidelities (conditioned in float64), against its plain version on the
+    same float32 Linv/alpha evaluated in float64; 2e-3 rtol/atol."""
+    from bench import _theta, build_problem
+
+    f32, f64 = torch.float32, torch.float64
+
+    def t(a, dt):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    Xn, fidn, yn, _, _ = build_problem(N, 16, seed=1)
+    fidn = fidn % F
+    v, l, r, nz = _theta()
+    v, l, r, nz = v[:F], l[:F], r[:F - 1], nz[:F]
+    p64 = mf.params_from_numpy(np.log(v), np.log(l), r, np.log(nz), dev, f64)
+    Xd, fd, yd = t(Xn, f64), t(fidn, torch.long), t(yn, f64)
+    _, _, st = mf.nlml_value_grad_state_inv(p64, Xd, fd, yd, kernel=kern,
+                                            jitter=1e-6)
+    L32, a32 = st.Linv.float(), st.alpha.float()
+    got = ck.syrk_grad_fused(L32, a32, Xd.float(), fd, t(v, f32), t(l, f32),
+                             t(r, f32), t(nz, f32), kern=kern)
+    ref = ck.syrk_grad_fused_plain(L32.double(), a32.double(), Xd, fd,
+                                   t(v, f64), t(l, f64), t(r, f64),
+                                   t(nz, f64), kern=kern)
+    torch.cuda.synchronize()
+    e = max(max_err(g, h) for g, h in zip(got, ref))
+    ok = all(allclose(g, h, 2e-3, 2e-3) for g, h in zip(got, ref))
+    check(f"B2 {kern} N={N} F={F}", ok,
+          f"max abs err {e:.3e} (rtol 2e-3, atol 2e-3)")
+    return e
+
+
 def kernel_checks(torch, ck, mf, dev):
     """Phase 3: each kernel against its plain version (float64 reference
     on the same inputs) at small ragged shapes; returns the max abs error
     per kernel over both bases."""
-    from bench import _theta, build_problem
-
     f32, f64 = torch.float32, torch.float64
     rng = np.random.default_rng(0)
     errs = {name: 0.0 for name, _, _ in KERNELS}
@@ -131,63 +203,54 @@ def kernel_checks(torch, ck, mf, dev):
             check(f"B1 {kern} {label} {tuple(got.shape)}", e <= 1e-5,
                   f"max abs err {e:.3e} (atol 1e-5)")
 
-        # B3: N=2000 x M=1500, random lower-triangular Linv; 2e-5 rtol/atol
-        N, M = 2000, 1500
-        X = rng.random((N, D)) * 5
-        fid = rng.integers(0, F, N)
-        Xs = rng.random((M, D)) * 5
-        fs = np.full(M, F - 1)
-        Linv = np.tril(rng.random((N, N)))
-        alpha = rng.random(N)
-        var = np.array([1.5, 1.0, 0.5])
-        ls = rng.uniform(0.5, 2.0, (F, D))
-        rho = np.array([0.9, 0.8])
-        fi, fsi = t(fid, torch.long), t(fs, torch.long)
-        Lf = t(Linv, f32)
-        af = t(alpha, f32)
-        Xf, Xsf = t(X, f32), t(Xs, f32)
-        mu, quad = ck.posterior_fused(Lf, af, Xf, fi, Xsf, fsi, t(var, f32),
-                                      t(ls, f32), t(rho, f32), kern=kern)
-        # the reference sees the same float32 values, evaluated in float64
-        mu_r, quad_r = ck.posterior_fused_plain(
-            Lf.double(), af.double(), Xf.double(), fi, Xsf.double(), fsi,
-            t(var, f64), t(ls, f64), t(rho, f64), kern=kern)
-        torch.cuda.synchronize()
-        e = max(max_err(mu, mu_r), max_err(quad, quad_r))
-        errs["posterior_fused"] = max(errs["posterior_fused"], e)
-        ok = (allclose(mu, mu_r, 2e-5, 2e-5)
-              and allclose(quad, quad_r, 2e-5, 2e-5))
-        rel = max(max_err(mu, mu_r) / float(mu_r.abs().max()),
-                  max_err(quad, quad_r) / float(quad_r.abs().max()))
-        check(f"B3 {kern} N={N} M={M}", ok,
-              f"max abs err {e:.3e}, max err / max |ref| {rel:.3e} "
-              "(rtol 2e-5, atol 2e-5)")
+        # B3 (2e-5 rtol/atol) and B2 (2e-3 rtol/atol) at shapes ragged
+        # against the engine's 128-wide tiles and 32-deep stages: N below
+        # one tile, M of 1 and 130, F of 1 and 3
+        for N, M, F_ in ((2000, 1500, 3), (50, 130, 1), (333, 1, 3),
+                         (1000, 130, 1)):
+            e = b3_check(torch, ck, dev, rng, kern, N, M, F_)
+            errs["posterior_fused"] = max(errs["posterior_fused"], e)
+        for N, F_ in ((1500, 3), (50, 1), (333, 3), (1031, 1)):
+            e = b2_check(torch, ck, mf, dev, kern, N, F_)
+            errs["syrk_grad_fused"] = max(errs["syrk_grad_fused"], e)
 
-        # B2: N=1500 from the benchmark's problem, conditioned in float64;
-        # the kernel gets float32 Linv/alpha, the reference the same values
-        # in float64; 2e-3 rtol/atol
-        N = 1500
-        Xn, fidn, yn, _, _ = build_problem(N, 16, seed=1)
-        v, l, r, nz = _theta()
-        p64 = mf.params_from_numpy(np.log(v), np.log(l), r, np.log(nz), dev,
-                                   f64)
-        Xd, fd, yd = t(Xn, f64), t(fidn, torch.long), t(yn, f64)
-        _, _, st = mf.nlml_value_grad_state_inv(p64, Xd, fd, yd, kernel=kern,
-                                                jitter=1e-6)
-        L32, a32 = st.Linv.float(), st.alpha.float()
-        got = ck.syrk_grad_fused(L32, a32, Xd.float(), fd, t(v, f32),
-                                 t(l, f32), t(r, f32), t(nz, f32), kern=kern)
-        ref = ck.syrk_grad_fused_plain(L32.double(), a32.double(), Xd, fd,
-                                       t(v, f64), t(l, f64), t(r, f64),
-                                       t(nz, f64), kern=kern)
-        torch.cuda.synchronize()
-        e = max(max_err(g, h) for g, h in zip(got, ref))
-        errs["syrk_grad_fused"] = max(errs["syrk_grad_fused"], e)
-        ok = all(allclose(g, h, 2e-3, 2e-3) for g, h in zip(got, ref))
-        check(f"B2 {kern} N={N}", ok,
-              f"max abs err {e:.3e} (rtol 2e-3, atol 2e-3)")
+    # the TF32 planes against the plain split, bit for bit: tf32_split in
+    # both layouts, and B1's planes (B3's staged S^T) against the plain
+    # split of B1's own output, at shapes ragged against the 32-wide tiles
+    x = rng.standard_normal((333, 1031)) * 10.0 ** rng.integers(-30, 30,
+                                                                 (333, 1031))
+    x = torch.as_tensor(x, dtype=f32, device=dev)
+    for transpose in (False, True):
+        same = planes_match(torch, ck.tf32_split(x, transpose=transpose),
+                            lambda r0, r1, tr=transpose: ck.tf32_split_plain(
+                                x[:, r0:r1] if tr else x[r0:r1], tr))
+        check(f"tf32_split transpose={transpose} (333, 1031)", same,
+              "bit-identical to tf32_split_plain")
+    for kern in BASES:
+        args = (t(X2, f32), fi2, t(X1, f32), fi1, t(var, f32), t(ls, f32),
+                t(rho, f32))
+        K = ck.ar1_cov_fused(*args, kern=kern)
+        same = planes_match(torch, ck.ar1_cov_split(*args, kern=kern),
+                            lambda r0, r1: ck.tf32_split_plain(K[r0:r1]))
+        check(f"B1 {kern} TF32 planes {tuple(K.shape)}", same,
+              "bit-identical to tf32_split_plain of B1's output")
     emit("kernels", max_abs_err=errs)
     return errs
+
+
+def planes_match(torch, planes, plain_rows, step: int = 2048) -> bool:
+    """Whether the (hi, lo) planes equal, bit for bit, the plain planes of
+    their rows, which ``plain_rows(r0, r1)`` returns, taken ``step`` rows
+    at a time."""
+    torch.cuda.synchronize()
+    rows = planes[0].shape[0]
+    for r0 in range(0, rows, step):
+        r1 = min(rows, r0 + step)
+        for got, ref in zip(planes, plain_rows(r0, r1)):
+            if not torch.equal(got[r0:r1].contiguous().view(torch.int32),
+                               ref.contiguous().view(torch.int32)):
+                return False
+    return True
 
 
 def run_unit(torch, ck, mf, problem, kern: str, nlml_ref: float):
@@ -232,20 +295,27 @@ def run_unit(torch, ck, mf, problem, kern: str, nlml_ref: float):
     got = (grad.log_variances, grad.log_lengthscales, grad.log_noises)
 
     def errs(gs):
-        norm = max(max_err(g, h) / float(h.abs().max())
-                   for g, h in zip(gs, ref))
+        norms = [max_err(g, h) / float(h.abs().max()) for g, h in zip(gs, ref)]
         comp = max(float(((g.double() - h).abs() / h.abs()).max())
                    for g, h in zip(gs, ref))
-        return norm, comp
+        return norms, comp
 
-    gnorm, gcomp = errs(got)
-    pnorm, pcomp = errs(plain32)
+    gnorms, gcomp = errs(got)
+    pnorms, pcomp = errs(plain32)
+    gnorm, pnorm = max(gnorms), max(pnorms)
     check(f"unit {kern} gradient", gcomp <= 2e-3,
           f"max rel err vs plain f64 {gcomp:.3e} (rtol 2e-3; plain f32 "
           f"path {pcomp:.3e}); max |err| / max |ref| per field {gnorm:.3e} "
           f"(plain f32 {pnorm:.3e})")
+    # g_logvar sums ~N^2 entries of W o T that cancel, so a bias in K^-1 of
+    # 1e-7 shows here first; cuBLAS' float32 path sits at ~3e-2
+    if kern == "rbf":
+        check(f"unit {kern} g_logvar normwise", gnorms[0] <= 1e-4,
+              f"max |err| / max |ref| {gnorms[0]:.3e} (<= 1e-4; plain f32 "
+              f"{pnorms[0]:.3e})")
     emit("unit", base=kern, N=int(Xt.shape[0]), M=int(gt.shape[0]),
          nlml=nlml, nlml_rel_err=rel, grad_normwise_err=gnorm,
+         g_logvar_normwise_err=gnorms[0], grad_normwise_errs=gnorms,
          grad_componentwise_err=gcomp, plain_f32_grad_normwise_err=pnorm,
          plain_f32_grad_componentwise_err=pcomp, var_pos_share=pos,
          launches=launched, first_call_s=first_s, peak_mem_gb=peak_gb,
@@ -323,6 +393,35 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
         p2 = cuda_ms(torch, plain, reps=1)
         kernel_ms[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+    # achieved rate of the contractions in float32-equivalent flop (2 per
+    # multiply-add the algorithm needs: N^3/6 for B2's K^-1 tiles, N^2 M / 2
+    # for B3's V), wrapper passes included
+    N, M = Xt.shape[0], gt.shape[0]
+    for name, flop in (("syrk_grad_fused", N ** 3 / 3),
+                       ("posterior_fused", N * N * M)):
+        kernel_ms[name]["tflops"] = flop / kernel_ms[name]["ms"] / 1e9
+    # the TF32 split passes inside B3 (Linv) and B2 (Linv^T), and B1's
+    # staging of S^T = K(grid, train) as planes inside B3
+    split_ms = {f"transpose={tr}": cuda_ms(
+        torch, lambda tr=tr: ck.tf32_split(S, transpose=tr))
+        for tr in (False, True)}
+    split_ms["b1_st_planes"] = cuda_ms(
+        torch, lambda: ck.ar1_cov_split(gt, gft, Xt, ft, v, ls, rho, kern))
+    # the same planes at the unit's shapes against the plain split, bit for
+    # bit (a wrong plane fails here by name, not only as B2/B3 error)
+    for tr in (False, True):
+        same = planes_match(torch, ck.tf32_split(S, transpose=tr),
+                            lambda r0, r1, tr=tr: ck.tf32_split_plain(
+                                S[:, r0:r1] if tr else S[r0:r1], tr))
+        check(f"unit {kern} tf32_split transpose={tr} {tuple(S.shape)}",
+              same, "bit-identical to tf32_split_plain")
+    Kst = ck.ar1_cov_fused(gt, gft, Xt, ft, v, ls, rho, None, kern)
+    same = planes_match(torch, ck.ar1_cov_split(gt, gft, Xt, ft, v, ls, rho,
+                                                kern),
+                        lambda r0, r1: ck.tf32_split_plain(Kst[r0:r1]))
+    check(f"unit {kern} B1 S^T planes {tuple(Kst.shape)}", same,
+          "bit-identical to tf32_split_plain of B1's output")
+    del Kst
     # the unit's B1 and B3 outputs against their plain versions in float64
     K = ck.ar1_cov_fused(Xt, ft, Xt, ft, v, ls, rho, noise, kern)
     Kr = ck.ar1_cov_fused_plain(Xt.double(), ft, Xt.double(), ft, v.double(),
@@ -351,8 +450,8 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
           f"max |err| / max |ref| {b3_err:.3e} (<= 1e-4); plain f32 "
           f"{b3_plain_err:.3e}")
     emit("times", base=kern, unit_wall_s=walls, phases_ms=phases,
-         kernel_ms=kernel_ms, b1_unit_err=b1_err, b3_unit_err=b3_err,
-         b3_plain_f32_err=b3_plain_err)
+         kernel_ms=kernel_ms, split_ms=split_ms, b1_unit_err=b1_err,
+         b3_unit_err=b3_err, b3_plain_f32_err=b3_plain_err)
     return kernel_ms
 
 

@@ -3,6 +3,11 @@
 //   K[i, j] = sum_m wA[m, i] wB[m, j] base(|A[m, i] - B[m, j]|^2)
 //             (+ noise[i] where i == j, when a noise vector is given)
 //
+// stored with row stride ldo; when a second output lo is given, out and lo
+// get the TF32 split of K instead (out = tf32_round(K), lo =
+// tf32_round(K - out), common.cuh), the operand planes of B3's tensor-core
+// walk written in the same pass.
+//
 // Replaces ar1_cov_fused / _ar1_tile_kernel in
 // mfgp_tpu/ops/pallas_kernels.py (pallas_call at :155), and with F = 1 its
 // wrapper rbf_cov_fused.
@@ -19,7 +24,8 @@
 // row (coalesced 128-byte stores, each output written exactly once). Per
 // fidelity the tile's 32 + 32 scaled points and weights are staged in shared
 // memory. Ragged edges are masked in the kernel; nothing is padded or copied.
-// The noise lands only on the global diagonal (i == j).
+// The noise lands only on the global diagonal (i == j). The split costs one
+// more 4-byte store per output and no extra read.
 #include "common.cuh"
 
 namespace {
@@ -32,7 +38,8 @@ __global__ void __launch_bounds__(kTile * kRows)
 ar1_cov_kernel(const float* __restrict__ A, const float* __restrict__ wA,
                const float* __restrict__ B, const float* __restrict__ wB,
                const float* __restrict__ noise, float* __restrict__ out,
-               int N, int M, int F, int D, int kern) {
+               float* __restrict__ lo, int ldo, int N, int M, int F, int D,
+               int kern) {
   __shared__ float sA[kTile][mfgp::kMaxD + 1];
   __shared__ float sB[kTile][mfgp::kMaxD + 1];
   __shared__ float swA[kTile];
@@ -76,7 +83,14 @@ ar1_cov_kernel(const float* __restrict__ A, const float* __restrict__ wA,
     if (gi >= N) continue;
     float v = acc[r];
     if (noise != nullptr && gi == gj) v += noise[gi];
-    out[(size_t)gi * M + gj] = v;
+    const size_t at = (size_t)gi * ldo + gj;
+    if (lo == nullptr) {
+      out[at] = v;
+    } else {
+      const float h = mfgp::tf32_round(v);
+      out[at] = h;
+      lo[at] = mfgp::tf32_round(v - h);
+    }
   }
 }
 
@@ -84,13 +98,15 @@ ar1_cov_kernel(const float* __restrict__ A, const float* __restrict__ wA,
 
 extern "C" int mfgp_ar1_cov_f32(const float* A, const float* wA,
                                 const float* B, const float* wB,
-                                const float* noise, float* out, int N, int M,
-                                int F, int D, int kern, void* stream) {
+                                const float* noise, float* out, float* lo,
+                                int ldo, int N, int M, int F, int D, int kern,
+                                void* stream) {
   if (N <= 0 || M <= 0) return 0;
+  if (ldo < M) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kTile, kRows);
   const dim3 grid((M + kTile - 1) / kTile, (N + kTile - 1) / kTile);
   ar1_cov_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, wA, B, wB, noise, out, N, M, F, D, kern);
+      A, wA, B, wB, noise, out, lo, ldo, N, M, F, D, kern);
   return static_cast<int>(cudaGetLastError());
 }
 

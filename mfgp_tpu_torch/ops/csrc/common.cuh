@@ -4,10 +4,13 @@
 // (mfgp_tpu/ops/pallas_kernels.py:91-107): per fidelity m the
 // lengthscale-scaled coordinates A[m, n, :] = X[n, :] / l_m (layout (F, N, D),
 // row-major) and the folded AR1 weights w[m, n] = W[m, fid[n]] * sqrt(var_m)
-// (layout (F, N)). All arithmetic is IEEE fp32 (no fast-math, no TF32).
+// (layout (F, N)). All arithmetic is IEEE fp32 (no fast-math); TF32 appears
+// only as the exact hi/lo split of tf32x3.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace mfgp {
 
@@ -40,6 +43,20 @@ __device__ __forceinline__ float sqdist(const float* a, const float* b,
     }
   }
   return r2;
+}
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, by integer operations on the fp32 pattern: the rounding of
+// cvt.rna.tf32.f32, except that a finite value never rounds up to infinity
+// (at the top of the range the low bits are cut instead), so that hi + lo
+// reconstructs every finite x. Infinities and NaNs pass unchanged. The plain
+// version is ops/cuda_kernels.tf32_round_plain, bit for bit.
+__device__ __forceinline__ float tf32_round(float x) {
+  const uint32_t b = __float_as_uint(x);
+  if ((b & 0x7F800000u) == 0x7F800000u) return x;
+  uint32_t r = (b + 0x1000u) & ~0x1FFFu;
+  if ((r & 0x7F800000u) == 0x7F800000u) r = b & ~0x1FFFu;
+  return __uint_as_float(r);
 }
 
 }  // namespace mfgp

@@ -105,6 +105,102 @@ def test_posterior_fused(dev, gen, kernel):
         torch.testing.assert_close(g.double(), r, rtol=2e-5, atol=2e-5)
 
 
+def _grad_args(dev, gen, kernel, N, F):
+    """float32 Linv/alpha (conditioned in float64) and parameters of an
+    F-fidelity AR1 problem at N points."""
+    D = 3
+    X = gen.random((N, D)) * 4
+    fid = gen.integers(0, F, N)
+    raw = (np.log([1.4, 0.9, 0.6][:F]), np.log(gen.uniform(0.8, 1.8, (F, D))),
+           np.array([0.9, 0.8][:F - 1]), np.log([0.05, 0.03, 0.02][:F]))
+    p = tm.params_from_numpy(*raw, dev, torch.float64)
+    Xd, fd, yd = _t(dev, X, fid, gen.normal(size=N), dtype=torch.float64)
+    _, _, st = tm.nlml_value_grad_state_inv(p, Xd, fd, yd, kernel=kernel,
+                                            jitter=1e-6)
+    return (st.Linv.float().contiguous(), st.alpha.float(), Xd.float(), fd,
+            p.variances.float(), p.lengthscales.float(), p.rhos.float(),
+            p.noises.float())
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("N,F", [(50, 1), (50, 3), (200, 1), (1031, 3)])
+def test_syrk_grad_fused_ragged(dev, gen, kernel, N, F):
+    """Shapes ragged against B2's 128-wide tiles and 32-deep stages, N
+    below one tile included."""
+    args = _grad_args(dev, gen, kernel, N, F)
+    got = ck.syrk_grad_fused(*args, kern=kernel)
+    ref = ck.syrk_grad_fused_plain(*_f64(*args), kern=kernel)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.double(), r, rtol=2e-3, atol=2e-3)
+
+
+def test_syrk_grad_fused_g_logvar_normwise_n4096(dev):
+    """The rbf g_logvar sums ~N^2 entries of W o T that cancel, so a bias
+    in the tensor-core K^-1 shows there first: normwise within 1e-4 of
+    the float64 path at N = 4096 (bench's problem and hyperparameters)."""
+    from bench import _theta, build_problem
+
+    X, fid, y, _, _ = build_problem(4096, 16, seed=1)
+    v, ls, rho, nz = _theta()
+    p = tm.params_from_numpy(np.log(v), np.log(ls), rho, np.log(nz), dev,
+                             torch.float64)
+    Xd, fd, yd = _t(dev, X, fid, y, dtype=torch.float64)
+    _, _, st = tm.nlml_value_grad_state_inv(p, Xd, fd, yd, kernel="rbf",
+                                            jitter=1e-6)
+    args = (st.Linv.float().contiguous(), st.alpha.float(), Xd.float(), fd,
+            p.variances.float(), p.lengthscales.float(), p.rhos.float(),
+            p.noises.float())
+    got = ck.syrk_grad_fused(*args, kern="rbf")
+    ref = ck.syrk_grad_fused_plain(*_f64(*args), kern="rbf")
+    err = float((got[0].double() - ref[0]).abs().max() / ref[0].abs().max())
+    assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("N,M,F", [(50, 1, 1), (50, 130, 3), (333, 1, 3),
+                                   (1031, 130, 1)])
+def test_posterior_fused_ragged(dev, gen, kernel, N, M, F):
+    """Shapes ragged against B3's 128-wide tiles: N below one tile, one
+    grid point, 130 grid points."""
+    args = _t(dev, np.tril(gen.random((N, N))), gen.random(N),
+              gen.random((N, 3)) * 5, gen.integers(0, F, N),
+              gen.random((M, 3)) * 5, np.full(M, F - 1),
+              np.array([1.5, 1.0, 0.5][:F]), gen.uniform(0.5, 2.0, (F, 3)),
+              np.array([0.9, 0.8][:F - 1]))
+    got = ck.posterior_fused(*args, kern=kernel)
+    ref = ck.posterior_fused_plain(*_f64(*args), kern=kernel)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.double(), r, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_tf32_split_matches_plain(dev, gen, transpose):
+    x = gen.standard_normal((333, 1031)) * 10.0 ** gen.integers(-30, 30,
+                                                                (333, 1031))
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    hi, lo = ck.tf32_split(x, transpose=transpose)
+    rhi, rlo = ck.tf32_split_plain(x.cpu(), transpose=transpose)
+    for got, ref in ((hi, rhi), (lo, rlo)):
+        assert torch.equal(got.cpu().contiguous().view(torch.int32),
+                           ref.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_ar1_cov_split_matches_plain_split(dev, gen, kernel):
+    """B1's TF32 planes (B3's staged S^T) are the plain split of B1's own
+    output, bit for bit, at a shape ragged against the 32-wide tile."""
+    M, N, D, F = 157, 301, 3, 3
+    args = _t(dev, gen.normal(size=(M, D)), gen.integers(0, F, M),
+              gen.normal(size=(N, D)), gen.integers(0, F, N),
+              np.array([2.0, 1.5, 0.7]), gen.uniform(0.5, 2.0, (F, D)),
+              np.array([1.1, 0.9]))
+    hi, lo = ck.ar1_cov_split(*args, kern=kernel)
+    rhi, rlo = ck.tf32_split_plain(ck.ar1_cov_fused(*args, kern=kernel).cpu())
+    for got, ref in ((hi, rhi), (lo, rlo)):
+        assert torch.equal(got.cpu().contiguous().view(torch.int32),
+                           ref.contiguous().view(torch.int32))
+
+
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_unit_slice_runs_through_the_kernels(dev, gen, kernel):
     """The unit at a small size in float32 on the card: every kernel is

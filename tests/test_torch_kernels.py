@@ -86,6 +86,23 @@ def test_ar1_cov_plain_matches_pallas(rng, kernel, F, noise):
 
 
 @pytest.mark.parametrize("kernel", ["rbf", "matern32"])
+@pytest.mark.parametrize("F", [1, 3])
+def test_ar1_cov_split_plain_matches_pallas(rng, kernel, F):
+    """B3's staged operand: the TF32 planes of K(grid, train), whose sum is
+    the Pallas covariance to float32 accuracy."""
+    Xs, fs, X, fid, var, ls, rho = _cov_problem(rng, F)
+    ref = pk.ar1_cov_fused(Xs, jnp.asarray(fs, jnp.int32), X,
+                           jnp.asarray(fid, jnp.int32), var, ls, rho,
+                           interpret=True, kern=kernel)
+    hi, lo = ck.ar1_cov_split(*_t(Xs, fs, X, fid, var, ls, rho), kern=kernel)
+    for plane in (hi, lo):
+        assert plane.dtype == torch.float32
+        assert not (plane.numpy().view(np.uint32) & 0x1FFF).any()
+    np.testing.assert_allclose((hi.double() + lo.double()).numpy(),
+                               np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["rbf", "matern32"])
 def test_rbf_cov_plain_matches_pallas(rng, kernel):
     X1, _, X2, _, _, _, _ = _cov_problem(rng, 1)
     ls = np.array([1.0, 2.0, 0.5], F32)
@@ -130,6 +147,9 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     X1, f1, X2, f2, var, ls, rho = _t(*_cov_problem(rng, 3, N=40, M=30))
     assert torch.equal(ck.ar1_cov_fused(X1, f1, X2, f2, var, ls, rho),
                        ck.ar1_cov_fused_plain(X1, f1, X2, f2, var, ls, rho))
+    for a, b in zip(ck.ar1_cov_split(X1, f1, X2, f2, var, ls, rho),
+                    ck.ar1_cov_split_plain(X1, f1, X2, f2, var, ls, rho)):
+        assert torch.equal(a, b)
     g = _t(*_grad_problem(rng, 2, N=50))
     for a, b in zip(ck.syrk_grad_fused(*g), ck.syrk_grad_fused_plain(*g)):
         assert torch.equal(a, b)
