@@ -22,10 +22,23 @@
    version at the unit's shapes, B2's and B3's achieved TFLOP/s, and the
    TF32 split passes, on CUDA events; the unit's TF32 planes (Linv, Linv^T,
    B1's S^T) against the plain split bit for bit.
+6. Fit: the fit paths. First two checks at a small size: the autodiff
+   NLML gradient in float32 on the card (through B1's autograd Function,
+   rhos included, N=2,000, both bases) against float64, and the Function's
+   backward for an asymmetric cotangent (N=1,000). Where one analytic and
+   one autodiff evaluation's time goes at N=20,000 (CUDA events). Then,
+   with the launch counters from 0, the full-width fits (N=20,000):
+   ``MFGP.optimize_restarts`` (rbf, matern32), ``MFGP.optimize`` (scipy on
+   the autodiff NLML, rbf) and ``GP.optimize_restarts`` (rbf), each a few
+   iterations, then ``predict`` on the grid; and the single-fidelity unit
+   (``gp.nlml_value_grad_state_inv`` through B2 at F=1, then
+   ``gp.predict_blocked_inv``). Each fit is held to: every lane finite, the
+   best NLML no higher than at the start, finite params, a finite grid
+   posterior with var > 0 on >= 99.9 % of points, B1 launched.
 
-Every phase prints one JSON line. A failed build or launch raises; a failed
-check is reported and the script exits 1 after the last phase. The last
-line, on success only, is
+Every phase prints one JSON line (the fit phase one per part). A failed
+build or launch raises; a failed check is reported and the script exits 1
+after the last phase. The last line, on success only, is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
@@ -455,6 +468,317 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
     return kernel_ms
 
 
+def field_errs(got, ref) -> list[float]:
+    """max |err| / max |ref| of each non-empty field."""
+    return [max_err(g, h) / float(h.double().abs().max())
+            for g, h in zip(got, ref) if h.numel()]
+
+
+def autodiff_checks(torch, mf, cov, dev):
+    """Phase 6, checks: the autodiff NLML gradient in float32 on the card
+    (B1's Function forward, closed-form backward) at the benchmark's
+    problem cut to N=2,000, against the float64 plain path (all four
+    fields, rhos included) and the float64 analytic gradient (the other
+    three); then the Function's backward alone for an asymmetric cotangent
+    at N=1,000 against float64 autograd of the plain composition. Bar:
+    max |err| / max |ref| <= 2e-3 per field."""
+    from bench import _theta, build_problem
+
+    f32, f64 = torch.float32, torch.float64
+    Xn, fidn, yn, _, _ = build_problem(2000, 16, seed=1)
+    v, l, r, nz = _theta()
+    raw = (np.log(v), np.log(l), r, np.log(nz))
+    errs = {}
+    for kern in BASES:
+        out = {}
+        for dt in (f32, f64):
+            p = mf.MFGPParams(*(torch.tensor(a, dtype=dt, device=dev,
+                                             requires_grad=True)
+                                for a in raw))
+            data = (torch.as_tensor(Xn, dtype=dt, device=dev),
+                    torch.as_tensor(fidn, dtype=torch.long, device=dev),
+                    torch.as_tensor(yn, dtype=dt, device=dev))
+            val = mf.nlml(p, *data, kernel=kern, jitter=1e-6)
+            out[dt] = torch.autograd.grad(val, list(p))
+        _, g_an = mf.nlml_value_and_grad(
+            mf.params_from_numpy(*raw, dev, f64),
+            *(torch.as_tensor(a, device=dev) for a in (Xn.astype(np.float64),
+                                                       fidn.astype(np.int64),
+                                                       yn.astype(np.float64))),
+            kernel=kern, jitter=1e-6)
+        e_ad = field_errs(out[f32], out[f64])
+        e_an = field_errs((out[f32][0], out[f32][1], out[f32][3]),
+                          (g_an.log_variances, g_an.log_lengthscales,
+                           g_an.log_noises))
+        check(f"fit autodiff gradient {kern} N=2000",
+              max(e_ad + e_an) <= 2e-3,
+              f"per field (var, ls, rho, noise) vs f64 autodiff {e_ad}, "
+              f"(var, ls, noise) vs f64 analytic {e_an} (<= 2e-3)")
+        errs[kern] = {"vs_f64_autodiff": e_ad, "vs_f64_analytic": e_an}
+
+        rng = np.random.default_rng(3)
+        N = 1000
+        X, fid = rng.random((N, 3)) * 6, rng.integers(0, 3, N)
+        Ct = rng.normal(size=(N, N))
+        back = {}
+        for dt in (f32, f64):
+            args = [torch.tensor(a, dtype=dt, device=dev, requires_grad=True)
+                    for a in (v / 10, l / 4, np.array([0.9, 0.8]))]
+            K = cov.ar1_cov_diff(*args, torch.as_tensor(X, dtype=dt,
+                                                        device=dev),
+                                 torch.as_tensor(fid, device=dev), kern)
+            back[dt] = torch.autograd.grad(
+                K, args, torch.as_tensor(Ct, dtype=dt, device=dev))
+        e_bw = field_errs(back[f32], back[f64])
+        check(f"fit Function backward {kern} N={N}", max(e_bw) <= 2e-3,
+              f"per field (var, ls, rho) vs f64 autograd {e_bw} (<= 2e-3)")
+        errs[kern]["function_backward"] = e_bw
+    emit("fit", part="autodiff_checks", errs=errs)
+
+
+class FitProbe:
+    """Counts and times (CUDA-synchronised, host clock) every NLML
+    evaluation a fit makes, and keeps each restart lane's final NLML and
+    iteration count, by wrapping the module-level functions the models'
+    fit methods call; ``restore`` puts them back. The package is
+    unchanged."""
+
+    def __init__(self, torch, mods):
+        self.torch = torch
+        self.saved = []
+        self.reset()
+        for mod in mods:
+            self._wrap(mod, "nlml_value_and_grad", self._analytic)
+            self._wrap(mod, "autograd_value_and_grad", self._autodiff)
+            self._wrap(mod, "batched_lbfgs", self._lanes)
+
+    def reset(self):
+        self.evals = {"analytic": [], "autodiff": []}  # (seconds, value)
+        self.lanes = None  # (final NLML, iterations) per lane
+
+    def restore(self):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+
+    def _wrap(self, mod, name, make):
+        orig = getattr(mod, name)
+        self.saved.append((mod, name, orig))
+        setattr(mod, name, make(orig))
+
+    def _timed(self, kind, fn, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.evals[kind].append((time.perf_counter() - t0, float(out[0])))
+        return out
+
+    def _analytic(self, orig):
+        return lambda *a, **kw: self._timed("analytic", orig, *a, **kw)
+
+    def _autodiff(self, orig):
+        def make(fun, dtype, device):
+            vg = orig(fun, dtype, device)
+            return lambda x: self._timed("autodiff", vg, x)
+        return make
+
+    def _lanes(self, orig):
+        def run(*a, **kw):
+            x, fs, ks = orig(*a, **kw)
+            self.lanes = (fs.double().cpu().tolist(), ks.cpu().tolist())
+            return x, fs, ks
+        return run
+
+
+def one_fit(torch, ck, probe, model, name, kern, fit, grid):
+    """Phase 6: one full-width fit through the model's own entry point,
+    then its grid posterior; checked and printed."""
+    probe.reset()
+    b1 = ck.LAUNCHES["ar1_cov_fused"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    best = fit(model)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    b1 = ck.LAUNCHES["ar1_cov_fused"] - b1
+    kind = "autodiff" if probe.evals["autodiff"] else "analytic"
+    evals = probe.evals[kind]
+    # the first evaluation is at the initial params (lane 0's start)
+    f0 = evals[0][1]
+    lanes, iters = probe.lanes or ([best], None)
+    label = f"fit {name} {kern}"
+    check(f"{label} lanes finite", all(np.isfinite(lanes)),
+          f"final NLML per lane {lanes}")
+    check(f"{label} NLML", best <= f0,
+          f"best {best:.6f} <= initial {f0:.6f}")
+    check(f"{label} params finite",
+          all(bool(torch.isfinite(p).all()) for p in model.params),
+          "fitted params finite")
+    check(f"{label} B1", b1 > 0, f"B1 launches in the fit: {b1}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mu, var = model.predict(grid)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t1
+    finite = bool(torch.isfinite(mu).all()) and bool(
+        torch.isfinite(var).all())
+    pos = float((var > 0).double().mean())
+    check(f"{label} predict", finite and pos >= 0.999,
+          f"grid posterior finite: {finite}, share var > 0 {pos:.6f} "
+          "(>= 0.999)")
+    times = [e[0] for e in evals]
+    emit("fit", part=name, base=kern, N=int(model.X.shape[0]),
+         evaluations=len(evals), eval_kind=kind, iterations=iters,
+         lane_nlml=lanes, nlml_initial=f0, nlml_best=best, seconds=seconds,
+         eval_seconds_sum=sum(times), eval_seconds=times,
+         **{f"s_per_{kind}_eval": float(np.median(times))},
+         b1_launches=b1, peak_mem_gb=peak_gb, predict_s=predict_s,
+         var_pos_share=pos,
+         params=[p.double().cpu().numpy().round(6).tolist()
+                 for p in model.params])
+
+
+def gp_unit(torch, gp, problem, params):
+    """Phase 6: the single-fidelity unit at full size, rbf: value, gradient
+    (B2 at F=1) and inverse-factor state, then the blocked grid posterior.
+    Returns what the float64 check needs."""
+    Xt, _, yt, gt, _, _ = problem
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    val, grad, state = gp.nlml_value_grad_state_inv(params, Xt, yt,
+                                                    kernel="rbf", jitter=1e-6)
+    mu, var = gp.predict_blocked_inv(params, state, gt, kernel="rbf")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(t).all()) for t in (val, mu, var,
+                                                          *grad))
+    pos = float((var > 0).double().mean())
+    check("fit gp unit rbf finite", finite and pos >= 0.999,
+          f"value, gradient, mu, var finite: {finite}; share var > 0 "
+          f"{pos:.6f} (>= 0.999)")
+    info = dict(nlml=float(val), seconds=seconds, var_pos_share=pos,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return info, grad, state
+
+
+def gp_unit_check(torch, ck, problem, params, grad, state, info):
+    """Phase 6: the single-fidelity unit's gradient against the plain path
+    evaluated in float64 on the same Linv: componentwise <= 2e-3."""
+    Xt = problem[0]
+    N = Xt.shape[0]
+    f64 = torch.float64
+    fid0 = torch.zeros(N, dtype=torch.long, device=Xt.device)
+    ref = ck.syrk_grad_fused_plain(
+        state.Linv.double(), state.alpha.double(), Xt.double(), fid0,
+        params.variance.double().reshape(1),
+        params.lengthscales.double().reshape(1, -1),
+        Xt.new_zeros(0, dtype=f64), params.noise.double().reshape(1),
+        kern="rbf")
+    got = (grad.log_variance, grad.log_lengthscales, grad.log_noise)
+    ref = (ref[0][0], ref[1][0], ref[2][0])
+    comp = max(float(((g.double() - h).abs() / h.abs()).max())
+               for g, h in zip(got, ref))
+    g_logvar = field_errs(got[:1], ref[:1])[0]
+    check("fit gp unit rbf gradient", comp <= 2e-3,
+          f"max rel err vs plain f64 {comp:.3e} (rtol 2e-3); g_logvar "
+          f"normwise {g_logvar:.3e}")
+    emit("fit", part="gp_unit", base="rbf", N=N, M=int(problem[3].shape[0]),
+         grad_componentwise_err=comp, g_logvar_normwise_err=g_logvar,
+         grad=[g.double().cpu().numpy().round(6).tolist() for g in got],
+         **info)
+
+
+def eval_phases(torch, ck, mf, la, cov, problem):
+    """Phase 6: where one fit evaluation's time goes at full size (rbf, the
+    problem's params), on CUDA events: the analytic evaluation's steps as
+    ``_nlml_vg_core(inv_mode=None)`` runs them, and the autodiff
+    evaluation's forward and backward."""
+    Xt, ft, yt, _, _, p = problem
+    v, ls, rho, nz = p.variances, p.lengthscales, p.rhos, p.noises
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    Kn = cov.mf_train_cov(v, ls, rho, nz, Xt, ft, 1e-6, "rbf")
+    ev[1].record()
+    L = la.chol(Kn)
+    del Kn
+    ev[2].record()
+    alpha = la.solve_posterior(L, yt)
+    la.logdet_from_chol(L)
+    ev[3].record()
+    Kinv = la.chol_solve_blocked(L, torch.eye(Xt.shape[0], device=Xt.device))
+    del L
+    ev[4].record()
+    ck.grad_from_kinv(Kinv, alpha, Xt, ft, v, ls, rho, nz, "rbf")
+    ev[5].record()
+    del Kinv
+    q = mf.MFGPParams(*(t.detach().clone().requires_grad_(True) for t in p))
+    ev[6].record()
+    val = mf.nlml(q, Xt, ft, yt, kernel="rbf", jitter=1e-6)
+    ev[7].record()
+    torch.autograd.grad(val, list(q))
+    ev[8].record()
+    torch.cuda.synchronize()
+    names = ("assembly", "chol", "alpha_logdet", "kinv_solves",
+             "contractions")
+    analytic = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    autodiff = {"forward": ev[6].elapsed_time(ev[7]),
+                "backward": ev[7].elapsed_time(ev[8])}
+    emit("fit", part="eval_phases", base="rbf", N=int(Xt.shape[0]),
+         analytic_ms=analytic, analytic_sum_ms=sum(analytic.values()),
+         autodiff_ms=autodiff, autodiff_sum_ms=sum(autodiff.values()))
+
+
+def fit_phase(torch, ck, mf, gp, la, cov, dev, problem):
+    """Phase 6 (see the module docstring); returns the launches of the fit
+    paths, counted from 0 over the fits and the single-fidelity unit."""
+    from bench import _theta
+
+    autodiff_checks(torch, mf, cov, dev)
+    eval_phases(torch, ck, mf, la, cov, problem)
+    Xt, ft, yt, gt, _, params = problem
+    v, l, _, nz = _theta()
+    f32 = torch.float32
+
+    def sf_params():
+        return gp.gp_params_from_numpy(np.log(v[2]), np.log(l[2]),
+                                       np.log(nz[2]), dev, f32)
+
+    restarts = dict(n_restarts=2, maxiter=3, tol=1e-3)
+    fits = (
+        ("mfgp_optimize_restarts", "rbf",
+         lambda k: mf.MFGP(Xt, ft, yt, kernel=k, params=params, jitter=1e-6),
+         lambda m: m.optimize_restarts(**restarts)),
+        ("mfgp_optimize_restarts", "matern32",
+         lambda k: mf.MFGP(Xt, ft, yt, kernel=k, params=params, jitter=1e-6),
+         lambda m: m.optimize_restarts(**restarts)),
+        ("mfgp_optimize", "rbf",
+         lambda k: mf.MFGP(Xt, ft, yt, kernel=k, params=params, jitter=1e-6),
+         lambda m: m.optimize(maxiter=3)),
+        ("gp_optimize_restarts", "rbf",
+         lambda k: gp.GP(Xt, yt, kernel=k, params=sf_params(), jitter=1e-6),
+         lambda m: m.optimize_restarts(**restarts)),
+    )
+    probe = FitProbe(torch, (mf, gp))
+    ck.reset_launches()
+    try:
+        for name, kern, make, fit in fits:
+            one_fit(torch, ck, probe, make(kern), name, kern, fit, gt)
+    finally:
+        probe.restore()
+    info, grad, state = gp_unit(torch, gp, problem, sf_params())
+    launches = dict(ck.LAUNCHES)
+    check("fit paths launches", launches["ar1_cov_fused"] > 0
+          and launches["syrk_grad_fused"] > 0,
+          f"B1 and B2 launched over the fits and the GP unit: {launches}")
+    gp_unit_check(torch, ck, problem, sf_params(), grad, state,
+                  dict(info, launches=launches))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -465,6 +789,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from bench import (BASELINE_CPU_NLML, BASELINE_CPU_NLML_MATERN32, M_GRID,
                        N_TRAIN, _theta, build_problem)
+    from mfgp_tpu_torch.models import gp
     from mfgp_tpu_torch.models import mfgp as mf
     from mfgp_tpu_torch.ops import build
     from mfgp_tpu_torch.ops import covariance as cov
@@ -515,13 +840,16 @@ def main() -> int:
 
     times = {kern: unit_times(torch, ck, mf, la, cov, problem, kern,
                               states[kern]) for kern in BASES}
+    del states
+    fit_launches = fit_phase(torch, ck, mf, gp, la, cov, dev, problem)
     if "jax" in sys.modules:
         FAILURES.append("jax was imported")
 
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": main_launches[name], "max_abs_err": errs[name],
+         "launches": main_launches[name],
+         "fit_launches": fit_launches[name], "max_abs_err": errs[name],
          "ms": times["rbf"][name]["ms"],
          "plain_ms": times["rbf"][name]["plain_ms"]}
         for name, src, rep in KERNELS]}), flush=True)

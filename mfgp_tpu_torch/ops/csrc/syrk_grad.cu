@@ -48,12 +48,19 @@
 // the mirrored column side. Row sums reduce across a half-warp with
 // shuffles, column sums across warps with shared-memory atomics; each block
 // then adds its (1 + D) x 128 sums into the (F, 1+D, N) outputs with global
-// atomicAdd in float64. The caller's assembly (x^2 . s - x . (A x)) cancels
-// by ~1e3, so float32 outputs made the rbf lengthscale gradient swing
-// between 5e-4 and 1.3e-3 relative from run to run with the order of the
-// atomics; float64 outputs hold it at ~6e-4 at no measurable cost (one H100
-// 80GB HBM3 at 700 W). The O(N^2) arithmetic stays float32. diag(W) is
-// stored by the diagonal tiles, once per entry.
+// atomicAdd. The caller's assembly (x^2 . s - x . (A x)) cancels by ~1e3,
+// so every sum past each thread's own 8 products is float64: the
+// shuffles, the shared-memory atomics and the global atomics. With
+// float32 global outputs the rbf lengthscale gradient swung between 5e-4
+// and 1.3e-3 relative from run to run with the order of the atomics. With
+// float32 shuffles and shared atomics, an rbf entry of 1.9 at N = 333,
+// F = 3 was off by -3.2e-3 with a run-to-run std of 1.2e-3 (200 runs)
+// against its 5.8e-3 bar, failing 2 to 5.5 % of runs; float64 from the
+// shuffles on: -4.9e-4, the same in every run, at +0.3 to +0.6 ms at
+// N = 20,000 (float64 from the first product: -1e-5, but 100 bytes of
+// spills and +2.8 / +5.1 ms; all on one H100 80GB HBM3 at 700 W). The
+// W o T entries and the 8-term sums stay float32. diag(W) is stored by
+// the diagonal tiles, once per entry.
 #include "tf32x3.cuh"
 
 namespace {
@@ -96,7 +103,7 @@ struct Epilogue {
   float Ai[kTile][kQ], Aj[kTile][kQ];  // scaled points, fidelity m
   float Xi[kTile][kQ], Xj[kTile][kQ];  // [1, x]
   float wi[kTile], wj[kTile];
-  float red_r[2][kQ][kTile], red_c[2][kQ][kTile];
+  double red_r[2][kQ][kTile], red_c[2][kQ][kTile];
 };
 static_assert(sizeof(Epilogue) <= sizeof(Stage) * kStages,
               "the epilogue must fit over the ring");
@@ -209,7 +216,7 @@ syrk_grad_kernel(const __grid_constant__ Maps maps,
       sh.wj[tid] = j0 + tid < N ? w[static_cast<size_t>(m) * N + j0 + tid] : 0.f;
     }
     for (int e = tid; e < 2 * kQ * kTile; e += kConsumers)
-      (&sh.red_c[0][0][0])[e] = 0.0f;
+      (&sh.red_c[0][0][0])[e] = 0.0;
     consumers_sync();
 
     for (int o = 0; o < nout; ++o) {
@@ -238,10 +245,11 @@ syrk_grad_kernel(const __grid_constant__ Maps maps,
         // row side: rows a_r gather sum_c M[a_r, b_c] x_q[b_c]
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
-          float v = 0.0f;
+          float v32 = 0.0f;
 #pragma unroll
           for (int c = 0; c < kR; ++c)
-            v = fmaf(mm[r][c], sh.Xj[tx + kNT * c][q], v);
+            v32 = fmaf(mm[r][c], sh.Xj[tx + kNT * c][q], v32);
+          double v = v32;
 #pragma unroll
           for (int off = kNT / 2; off > 0; off >>= 1)
             v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -252,10 +260,11 @@ syrk_grad_kernel(const __grid_constant__ Maps maps,
         if (!diag_tile) {
 #pragma unroll
           for (int c = 0; c < kR; ++c) {
-            float u = 0.0f;
+            float u32 = 0.0f;
 #pragma unroll
             for (int r = 0; r < kR; ++r)
-              u = fmaf(mm[r][c], sh.Xi[ty + kNT * r][q], u);
+              u32 = fmaf(mm[r][c], sh.Xi[ty + kNT * r][q], u32);
+            double u = u32;
             u += __shfl_xor_sync(0xffffffffu, u, kNT);
             if ((ty & 1) == 0) atomicAdd(&sh.red_c[o][q][tx + kNT * c], u);
           }
@@ -269,9 +278,9 @@ syrk_grad_kernel(const __grid_constant__ Maps maps,
       double* dst = o ? sv2 : sv;
       const size_t base = (static_cast<size_t>(m) * nq + q) * N;
       if (i0 + t < N)
-        atomicAdd(&dst[base + i0 + t], static_cast<double>(sh.red_r[o][q][t]));
+        atomicAdd(&dst[base + i0 + t], sh.red_r[o][q][t]);
       if (!diag_tile && j0 + t < N)
-        atomicAdd(&dst[base + j0 + t], static_cast<double>(sh.red_c[o][q][t]));
+        atomicAdd(&dst[base + j0 + t], sh.red_c[o][q][t]);
     }
   }
 }

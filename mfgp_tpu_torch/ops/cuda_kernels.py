@@ -96,14 +96,18 @@ def grad_from_kinv(Kinv, alpha, X, fid, variances, lengthscales, rhos,
     Wm = Kinv - alpha[:, None] * alpha[None, :]
     ones_x = torch.cat([X.new_ones((N, 1)), X], dim=1)
     sv, sv2 = [], []
-    for m in range(F):
+    for m in range(F):  # one N x N term alive at a time
         ww = w[m][:, None] * w[m][None, :]
         T = variances[m] * ww * kfn(X, X, 1.0, lengthscales[m])
         sv.append(((Wm * T) @ ones_x).T)
+        del T
         if kern == "matern32":
             r = torch.sqrt(_k.sqdist(X, X, 1.0 / lengthscales[m]) + 1e-36)
             E = variances[m] * ww * (3.0 * torch.exp(-_k._SQRT3 * r))
+            del r
             sv2.append(((Wm * E) @ ones_x).T)
+            del E
+        del ww
     return _grad_from_sums(torch.stack(sv),
                            torch.stack(sv2) if sv2 else None,
                            torch.diagonal(Wm), X, fid, lengthscales, noises,

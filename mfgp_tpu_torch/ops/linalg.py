@@ -23,8 +23,13 @@ def diag_add(K: torch.Tensor, d) -> torch.Tensor:
 
 
 def chol(K: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor; raises if K is not positive definite."""
-    return torch.linalg.cholesky(K)
+    """Lower Cholesky factor, failing as the JAX package's ``chol`` does:
+    a matrix that is not positive definite gives NaN in the lower triangle
+    and zeros above it, with no exception and no host sync. The fit loops
+    rely on that NaN: it becomes their non-finite penalty or a rejected
+    line-search trial. Differentiable (autograd covers ``cholesky_ex``)."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info == 0)[..., None, None], L, torch.nan).tril()
 
 
 def tri_solve(L: torch.Tensor, B: torch.Tensor,
@@ -169,3 +174,17 @@ def posterior_var(kss_diag: torch.Tensor, Kxs: torch.Tensor,
     """Marginal predictive variances without the full covariance."""
     V = tri_solve(L, Kxs.T)
     return kss_diag - torch.sum(V * V, dim=0)
+
+
+def chol_append_block(L: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor) -> torch.Tensor:
+    """Extend a Cholesky factor by a block of rows: given ``L = chol(A)``
+    (n x n) and the bordered matrix ``[[A, B], [B^T, C]]`` with B (n x p),
+    C (p x p), the (n+p) x (n+p) lower factor in O(n^2 p + p^3)."""
+    n, p = L.shape[0], C.shape[0]
+    Lb = tri_solve(L, B)
+    out = L.new_zeros((n + p, n + p))
+    out[:n, :n] = L
+    out[n:, :n] = Lb.T
+    out[n:, n:] = chol(C - Lb.T @ Lb)
+    return out

@@ -96,6 +96,49 @@ def test_cholesky_and_solves(spd):
           jla.diag_add(Kj, jnp.asarray(d)))
 
 
+def test_chol_not_positive_definite(spd):
+    """A matrix that is not positive definite: JAX's chol gives NaN in the
+    lower triangle and zeros above it, without an exception; so does the
+    port's, per matrix of a batch."""
+    bad = np.array([[1.0, 2.0, 0.0], [2.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+    (bj, bt), = both(bad)
+    ref = np.asarray(jla.chol(bj))
+    got = tla.chol(bt).numpy()
+    assert np.isnan(ref[np.tril_indices(3)]).all()
+    assert not np.triu(ref, 1).any()
+    np.testing.assert_array_equal(got, ref)  # NaN == NaN here
+    good = spd[0][:3, :3]
+    (Sj, St), = both(np.stack([good, bad]))
+    got, ref = tla.chol(St).numpy(), np.asarray(jla.chol(Sj))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_allclose(got[0], ref[0], rtol=RTOL, atol=ATOL)
+
+
+def test_chol_gradient(spd):
+    """chol stays differentiable: its autograd gradient equals JAX's."""
+    import jax
+
+    K = spd[0][:20, :20]
+    W = np.tril(np.random.default_rng(3).normal(size=K.shape))
+    Kt = torch.as_tensor(K).requires_grad_(True)
+    got, = torch.autograd.grad(torch.sum(tla.chol(Kt) * torch.as_tensor(W)),
+                               Kt)
+    ref = jax.grad(lambda a: jnp.sum(jla.chol(a) * W))(jnp.asarray(K))
+    # JAX's cholesky VJP symmetrises its cotangent, torch's does not:
+    # compare the gradients as functions of a symmetric input
+    close(got + got.T, ref + ref.T)
+
+
+def test_chol_append_block(spd):
+    K = spd[0]
+    n = 80
+    (Lj, Lt), (Bj, Bt), (Cj, Ct) = both(np.linalg.cholesky(K[:n, :n]),
+                                        K[:n, n:], K[n:, n:])
+    got = tla.chol_append_block(Lt, Bt, Ct)
+    close(got, jla.chol_append_block(Lj, Bj, Cj))
+    close(got, np.linalg.cholesky(K))
+
+
 @pytest.mark.parametrize("block", [16, 40])
 def test_blocked_solves(spd, block):
     K, B, y = spd
@@ -182,9 +225,9 @@ def test_port_imports_without_jax_or_triton():
     code = (
         "import sys\n"
         "import mfgp_tpu_torch\n"
-        "from mfgp_tpu_torch.models import mfgp\n"
+        "from mfgp_tpu_torch.models import gp, mfgp\n"
         "from mfgp_tpu_torch.ops import build, covariance, cuda_kernels, "
-        "kernels, linalg\n"
+        "kernels, linalg, optimize\n"
         "bad = [m for m in ('jax', 'triton', 'mfgp_tpu') if m in "
         "sys.modules]\n"
         "assert not bad, bad\n")
