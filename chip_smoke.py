@@ -10,7 +10,9 @@
    the card, both base kernels, at small shapes ragged against the tiles
    (B2/B3: N below one 128-wide tile, M of 1 and 130, F of 1 and 3), and
    the TF32 planes (``tf32_split`` and B1's) against the plain split bit
-   for bit.
+   for bit. B1 also: its symmetric half grid against the full grid bit for
+   bit, and 420 ragged shapes per base against float64 (``b1_checks``).
+   The build phase reports B1's registers and spills.
 4. Unit: the benchmark unit of ``bench.py`` at full size (N=20,000
    training points, the M=10,571-point grid, F=3, D=3, float32) for rbf and
    matern32: ``nlml_value_grad_state_inv(inv_mode="highest")`` then
@@ -20,8 +22,10 @@
    kernels ran.
 5. Times: the unit's wall time and phases, each kernel beside its plain
    version at the unit's shapes, B2's and B3's achieved TFLOP/s, and the
-   TF32 split passes, on CUDA events; the unit's TF32 planes (Linv, Linv^T,
-   B1's S^T) against the plain split bit for bit.
+   TF32 split passes, on CUDA events; B1 at each of its main-path launch
+   shapes (the unit's Gram, B3's S^T planes, the GP's F=1 Gram) with its
+   bound and share of it; the unit's TF32 planes (Linv, Linv^T, B1's S^T)
+   against the plain split bit for bit.
 6. Fit: the fit paths. First two checks at a small size: the autodiff
    NLML gradient in float32 on the card (through B1's autograd Function,
    rhos included, N=2,000, both bases) against float64, and the Function's
@@ -42,12 +46,20 @@ after the last phase. The last line, on success only, is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
+
+    python3 chip_smoke.py --b1-times ROOT
+
+times only B1 at its main-path launch shapes (with its registers and
+static SASS) and the unit's wall for the port package of the checkout at
+ROOT, so that two commits can be timed in turns on one card. It prints
+no result line.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -65,6 +77,12 @@ KERNELS = (
 )
 BASES = ("rbf", "matern32")
 FAILURES: list[str] = []
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
+# memory bytes/s, float32 outside the tensor cores, and 3xTF32 (three TF32
+# passes per float32-equivalent product)
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+TF32X3_FLOPS = 495e12 / 3
 
 
 def emit(phase: str, **fields) -> None:
@@ -251,6 +269,278 @@ def kernel_checks(torch, ck, mf, dev):
     return errs
 
 
+def b1_checks(torch, ck, dev):
+    """Phase 3, B1's redesign: the symmetric half grid (the same tensors
+    twice) against the full grid (the same points as two distinct
+    tensors) bit for bit, at N of 1, 31, 33, 1000 and 1031, F of 1 and 3,
+    noise on and off; then B1 against its plain version in float64 at
+    ragged shapes (N in 1, 33, 127, 129, 1537; M also 128 and 1536, so
+    that both the 16-byte and the scalar stores run; D of 1, 3, 8; F of 1,
+    2, 3, 5), atol 1e-5. Returns the max abs error."""
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(4)
+
+    def t(a, dt=f32):
+        return torch.as_tensor(a, dtype=dt if a.dtype.kind == "f" else None,
+                               device=dev)
+
+    def problem(N, M, D, F):
+        return (rng.normal(size=(N, D)), rng.integers(0, F, N),
+                rng.normal(size=(M, D)), rng.integers(0, F, M),
+                rng.uniform(0.5, 2.0, F), rng.uniform(0.5, 2.0, (F, D)),
+                rng.uniform(0.7, 1.2, F - 1))
+
+    for kern in BASES:
+        for F in (1, 3):
+            differ = []
+            for N in (1, 31, 33, 1000, 1031):
+                X, fid, _, _, v, ls, rho = (t(a) for a in problem(N, 1, 3, F))
+                nz = t(rng.uniform(0.1, 0.5, N))
+                for noise in (None, nz):
+                    sym = ck.ar1_cov_fused(X, fid, X, fid, v, ls, rho, noise,
+                                           kern)
+                    full = ck.ar1_cov_fused(X, fid, X.clone(), fid.clone(), v,
+                                            ls, rho, noise, kern)
+                    if not torch.equal(sym.view(torch.int32),
+                                       full.view(torch.int32)):
+                        differ.append((N, noise is not None))
+            check(f"B1 {kern} F={F} symmetric = general", not differ,
+                  f"bit-identical at N in (1, 31, 33, 1000, 1031), noise on "
+                  f"and off; differing (N, noise): {differ}")
+    worst = {}
+    sizes = (1, 33, 127, 129, 1537)
+    for kern in BASES:
+        e_max, at, n = 0.0, None, 0
+        for N in sizes:
+            for M in sizes + (128, 1536):
+                for D in (1, 3, 8):
+                    for F in (1, 2, 3, 5):
+                        a = problem(N, M, D, F)
+                        got = ck.ar1_cov_fused(*(t(x) for x in a), kern=kern)
+                        ref = ck.ar1_cov_fused_plain(*(t(x, f64) for x in a),
+                                                     kern=kern)
+                        e = max_err(got, ref)
+                        n += 1
+                        if e > e_max or at is None:
+                            e_max, at = e, (N, M, D, F)
+        torch.cuda.synchronize()
+        worst[kern] = e_max
+        check(f"B1 {kern} ragged vs plain f64", e_max <= 1e-5,
+              f"{n} shapes; max abs err {e_max:.3e} at (N, M, D, F) = {at} "
+              "(atol 1e-5)")
+    emit("b1_checks", max_abs_err=worst)
+    return max(worst.values())
+
+
+def b1_launches(torch, ck, problem, kern: str):
+    """B1's launch shapes on the main path, each as (name, kernel call,
+    plain call, bytes, flop): the unit's Gram with noise (N^2, F=3), B3's
+    S^T staged as TF32 planes (M x N, two planes) and the GP's Gram (F=1).
+    Bytes: each input read once, each output written once. Flop: per
+    evaluation of one fidelity's term 3D + 5 for rbf (D differences and
+    FMAs, the scale, the exponential, the weight product and the sum),
+    3D + 8 for matern32 (and its guard, sqrt and polynomial); a symmetric
+    Gram needs N(N+1)/2 evaluations per fidelity."""
+    Xt, ft, _, gt, gft, p = problem
+    v, ls, rho, nz = p.variances, p.lengthscales, p.rhos, p.noises
+    N, D = Xt.shape
+    M = gt.shape[0]
+    F = v.shape[0]
+    noise = nz[ft] + 1e-6
+    per = 3 * D + (5 if kern == "rbf" else 8)
+    z = torch.zeros(N, dtype=torch.long, device=Xt.device)
+    sym = N * (N + 1) / 2
+    pts = (N * D + N) * 4 + N * 8  # X, noise and labels, float32 / int64
+    return (
+        ("gram", lambda: ck.ar1_cov_fused(Xt, ft, Xt, ft, v, ls, rho, noise,
+                                          kern),
+         lambda: ck.ar1_cov_fused_plain(Xt, ft, Xt, ft, v, ls, rho, noise,
+                                        kern),
+         4 * N * N + pts, sym * F * per),
+        ("st_planes", lambda: ck.ar1_cov_split(gt, gft, Xt, ft, v, ls, rho,
+                                               kern),
+         lambda: ck.ar1_cov_split_plain(gt, gft, Xt, ft, v, ls, rho, kern),
+         2 * 4 * M * N + pts + (M * D) * 4 + M * 8, M * N * F * per),
+        ("gp_gram", lambda: ck.rbf_cov_fused(Xt, Xt, v[2], ls[2], noise,
+                                             kern),
+         lambda: ck.ar1_cov_fused_plain(Xt, z, Xt, z, v[2:], ls[2:], rho[:0],
+                                        noise, kern),
+         4 * N * N + pts, sym * per),
+    )
+
+
+def b1_times(torch, ck, problem, kern: str, plain: bool = True) -> dict:
+    """B1 at each main-path launch shape (``b1_launches``), on CUDA events:
+    min of two runs of ten launches, with ``plain`` its plain version in
+    turns (plain, kernel, kernel, plain); beside each its bound (the larger
+    of bytes over 3.35 TB/s and flop over 67 TFLOP/s), which of the two
+    sets it, the share of the bound reached, and the write rate achieved."""
+    out = {}
+    for name, fused, ref, nbytes, flop in b1_launches(torch, ck, problem,
+                                                      kern):
+        p1 = cuda_ms(torch, ref, reps=1) if plain else None
+        k1 = cuda_ms(torch, fused, reps=10)
+        k2 = cuda_ms(torch, fused, reps=10)
+        p2 = cuda_ms(torch, ref, reps=1) if plain else None
+        ms = min(k1, k2)
+        t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flop / FP32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        out[name] = {"ms": ms, "ms_runs": [k1, k2],
+                     "plain_ms": min(p1, p2) if plain else None,
+                     "plain_ms_runs": [p1, p2] if plain else None,
+                     "bytes": nbytes, "flop": flop, "bound_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "share_of_bound": bound / ms,
+                     "write_tb_per_s": nbytes / ms / 1e9}
+    return out
+
+
+def ptxas_report(log_lines, part: str) -> dict:
+    """Registers, spills and shared memory per kernel whose mangled name
+    holds ``part``, from the ``-Xptxas -v`` lines of build.log."""
+    out, name = {}, None
+    for ln in log_lines:
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", ln)
+        if m:
+            name = m.group(1) if part in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        rec = out.setdefault(short_name(name), {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            rec["spill_stores"], rec["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        if m:
+            rec["registers"], rec["smem"] = map(int, m.groups())
+    return out
+
+
+def short_name(mangled: str) -> str:
+    """B1's instantiation as 'base D' (D padded: 3 or 8); other names as
+    they are."""
+    m = re.search(r"ar1_cov_kernelILi(\d+)ELi(\d+)E", mangled)
+    if not m:
+        return mangled
+    k, d = map(int, m.groups())
+    return f"{BASES[k]} D{d}"
+
+
+def sass_report(lib_path, part: str, keep) -> dict:
+    """Static SASS of the kernels whose mangled name holds ``part``
+    (``cuobjdump -sass`` on the built library), for the names ``keep``
+    accepts: instructions in all, and the inner loop, taken as the loop
+    (a backward branch) with the most ``MUFU.EX2``: its instructions, its
+    exponentials, its instructions per exponential (each output costs one
+    exponential per fidelity, so this is the instruction cost of one
+    output's term), and its opcodes."""
+    import collections
+
+    from mfgp_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    funcs, name = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = m.group(1) if part in m.group(1) else None
+            if name is not None:
+                funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][\w.]*)([^;]*)", ln)
+        if m and name is not None:
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for mangled, ins in funcs.items():
+        short = short_name(mangled)
+        if not keep(short):
+            continue
+        at = {a: i for i, (a, _, _) in enumerate(ins)}
+        loop = []
+        for i, (a, op, rest) in enumerate(ins):
+            m = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if m and int(m.group(1), 16) in at and int(m.group(1), 16) < a:
+                body = ins[at[int(m.group(1), 16)]:i + 1]
+                if (sum(o == "MUFU.EX2" for _, o, _ in body)
+                        > sum(o == "MUFU.EX2" for _, o, _ in loop)):
+                    loop = body
+        ops = collections.Counter(o if o.startswith("MUFU") else
+                                  o.split(".")[0] for _, o, _ in loop)
+        n, ex2 = sum(ops.values()) - ops["NOP"], ops["MUFU.EX2"]
+        out[short] = {"instructions": len(ins), "loop_instructions": n,
+                      "loop_mufu_ex2": ex2,
+                      "loop_per_exp": n / ex2 if ex2 else None,
+                      "loop_ops": dict(ops.most_common(12))}
+    return out
+
+
+def main_path_b1(short: str) -> bool:
+    """The instantiations of B1 the main path runs (D=3), and a kernel
+    without template arguments (an earlier version's)."""
+    return short.endswith(" D3") or "ar1_cov_kernel" in short
+
+
+def make_problem(torch, mf, dev):
+    """The benchmark unit's problem on the card: (X, fid, y, grid, grid
+    fid, params), float32."""
+    from bench import M_GRID, N_TRAIN, _theta, build_problem
+
+    X, fid, y, grid, gfid = build_problem(N_TRAIN, M_GRID)
+    v, l, r, nz = _theta()
+    params = mf.params_from_numpy(np.log(v), np.log(l), r, np.log(nz), dev,
+                                  torch.float32)
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    return (t(X), t(fid, torch.long), t(y), t(grid), t(gfid, torch.long),
+            params)
+
+
+def b1_times_only(root: str) -> int:
+    """``--b1-times ROOT``: B1's kernel times at the main path's launch
+    shapes for the port package of the checkout at ROOT (another commit's,
+    so that two versions can be timed in turns on one card), with its
+    registers and static SASS, and the unit's wall (``unit_walls``); no
+    checks, no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from mfgp_tpu_torch.models import mfgp as mf
+    from mfgp_tpu_torch.ops import build
+    from mfgp_tpu_torch.ops import cuda_kernels as ck
+
+    if not os.path.abspath(ck.__file__).startswith(root + os.sep):
+        print(f"chip_smoke: imported {ck.__file__}, not from {root}",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    lib_path = build.build()
+    build.load_library()
+    log = (lib_path.parent / "build.log").read_text().splitlines()
+    emit("b1_build", root=root, nvidia_smi=nvidia_smi(),
+         seconds=time.perf_counter() - t0,
+         ptxas=ptxas_report(log, "ar1_cov_kernel"),
+         sass=sass_report(lib_path, "ar1_cov_kernel", main_path_b1))
+    problem = make_problem(torch, mf, dev)
+    for kern in BASES:
+        emit("b1_times", root=root, base=kern,
+             times=b1_times(torch, ck, problem, kern, plain=False),
+             unit_wall_s=unit_walls(torch, mf, problem, kern, reps=4))
+    return 0
+
+
 def planes_match(torch, planes, plain_rows, step: int = 2048) -> bool:
     """Whether the (hi, lo) planes equal, bit for bit, the plain planes of
     their rows, which ``plain_rows(r0, r1)`` returns, taken ``step`` rows
@@ -338,12 +628,13 @@ def run_unit(torch, ck, mf, problem, kern: str, nlml_ref: float):
     return state
 
 
-def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
-    """Phase 5: wall time of the unit, its phases, and each kernel beside
-    its plain version at the unit's shapes (CUDA events)."""
+def unit_walls(torch, mf, problem, kern: str, reps: int = 3) -> list:
+    """Seconds of each of ``reps`` units (NLML, gradient, conditioning,
+    grid posterior), host clock; the first carries any one-time set-up
+    the caller has not paid yet."""
     Xt, ft, yt, gt, gft, p = problem
     walls = []
-    for _ in range(3):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, _, st = mf.nlml_value_grad_state_inv(p, Xt, ft, yt, kernel=kern,
@@ -352,6 +643,14 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         del st
+    return walls
+
+
+def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
+    """Phase 5: wall time of the unit, its phases, and each kernel beside
+    its plain version at the unit's shapes (CUDA events)."""
+    Xt, ft, yt, gt, gft, p = problem
+    walls = unit_walls(torch, mf, problem, kern)
 
     # the unit's steps one by one, as _nlml_vg_core + predict_fused run them
     v, ls, rho, nz = p.variances, p.lengthscales, p.rhos, p.noises
@@ -383,10 +682,6 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
     noise = nz[ft] + 1e-6
     S, a = state.Linv, state.alpha
     runs = {
-        "ar1_cov_fused": (
-            lambda: ck.ar1_cov_fused(Xt, ft, Xt, ft, v, ls, rho, noise, kern),
-            lambda: ck.ar1_cov_fused_plain(Xt, ft, Xt, ft, v, ls, rho, noise,
-                                           kern)),
         "syrk_grad_fused": (
             lambda: ck.syrk_grad_fused(S, a, Xt, ft, v, ls, rho, nz, kern),
             lambda: ck.syrk_grad_fused_plain(S, a, Xt, ft, v, ls, rho, nz,
@@ -397,7 +692,9 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
             lambda: ck.posterior_fused_plain(S, a, Xt, ft, gt, gft, v, ls,
                                              rho, kern)),
     }
-    kernel_ms = {}
+    # B1 at each of its launch shapes (the unit's Gram is its row)
+    b1 = b1_times(torch, ck, problem, kern)
+    kernel_ms = {"ar1_cov_fused": dict(b1["gram"])}
     for name, (fused, plain) in runs.items():
         # plain, kernel, kernel, plain: compare within one card, in turns
         p1 = cuda_ms(torch, plain, reps=1)
@@ -418,8 +715,7 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
     split_ms = {f"transpose={tr}": cuda_ms(
         torch, lambda tr=tr: ck.tf32_split(S, transpose=tr))
         for tr in (False, True)}
-    split_ms["b1_st_planes"] = cuda_ms(
-        torch, lambda: ck.ar1_cov_split(gt, gft, Xt, ft, v, ls, rho, kern))
+    split_ms["b1_st_planes"] = b1["st_planes"]["ms"]
     # the same planes at the unit's shapes against the plain split, bit for
     # bit (a wrong plane fails here by name, not only as B2/B3 error)
     for tr in (False, True):
@@ -463,7 +759,7 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
           f"max |err| / max |ref| {b3_err:.3e} (<= 1e-4); plain f32 "
           f"{b3_plain_err:.3e}")
     emit("times", base=kern, unit_wall_s=walls, phases_ms=phases,
-         kernel_ms=kernel_ms, split_ms=split_ms, b1_unit_err=b1_err,
+         kernel_ms=kernel_ms, b1_ms=b1, split_ms=split_ms, b1_unit_err=b1_err,
          b3_unit_err=b3_err, b3_plain_f32_err=b3_plain_err)
     return kernel_ms
 
@@ -617,6 +913,8 @@ def one_fit(torch, ck, probe, model, name, kern, fit, grid):
           all(bool(torch.isfinite(p).all()) for p in model.params),
           "fitted params finite")
     check(f"{label} B1", b1 > 0, f"B1 launches in the fit: {b1}")
+    check(f"{label} on the card", model.X.is_cuda,
+          f"the model's data on {model.X.device}")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     mu, var = model.predict(grid)
@@ -758,8 +1056,11 @@ def fit_phase(torch, ck, mf, gp, la, cov, dev, problem):
         ("mfgp_optimize", "rbf",
          lambda k: mf.MFGP(Xt, ft, yt, kernel=k, params=params, jitter=1e-6),
          lambda m: m.optimize(maxiter=3)),
+        # from numpy arrays, which go to the classes' default device, the
+        # card
         ("gp_optimize_restarts", "rbf",
-         lambda k: gp.GP(Xt, yt, kernel=k, params=sf_params(), jitter=1e-6),
+         lambda k: gp.GP(Xt.cpu().numpy(), yt.cpu().numpy(), kernel=k,
+                         params=sf_params(), jitter=1e-6),
          lambda m: m.optimize_restarts(**restarts)),
     )
     probe = FitProbe(torch, (mf, gp))
@@ -779,7 +1080,12 @@ def fit_phase(torch, ck, mf, gp, la, cov, dev, problem):
     return launches
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv[:1] == ["--b1-times"] and len(argv) == 2:
+        return b1_times_only(argv[1])
+    if argv:
+        print("usage: chip_smoke.py [--b1-times ROOT]", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -787,8 +1093,7 @@ def main() -> int:
               "needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from bench import (BASELINE_CPU_NLML, BASELINE_CPU_NLML_MATERN32, M_GRID,
-                       N_TRAIN, _theta, build_problem)
+    from bench import BASELINE_CPU_NLML, BASELINE_CPU_NLML_MATERN32
     from mfgp_tpu_torch.models import gp
     from mfgp_tpu_torch.models import mfgp as mf
     from mfgp_tpu_torch.ops import build
@@ -814,20 +1119,14 @@ def main() -> int:
     log = (lib_path.parent / "build.log").read_text().splitlines()
     emit("build", seconds=time.perf_counter() - t0, library=str(lib_path),
          ptxas=[ln.strip() for ln in log
-                if "registers" in ln or "spill" in ln or "Compiling" in ln])
+                if "registers" in ln or "spill" in ln or "Compiling" in ln],
+         b1_ptxas=ptxas_report(log, "ar1_cov_kernel"))
 
     errs = kernel_checks(torch, ck, mf, dev)
+    errs["ar1_cov_fused"] = max(errs["ar1_cov_fused"],
+                                b1_checks(torch, ck, dev))
 
-    X, fid, y, grid, gfid = build_problem(N_TRAIN, M_GRID)
-    v, l, r, nz = _theta()
-    params = mf.params_from_numpy(np.log(v), np.log(l), r, np.log(nz), dev,
-                                  torch.float32)
-
-    def t(a, dt=torch.float32):
-        return torch.as_tensor(a, dtype=dt, device=dev)
-
-    problem = (t(X), t(fid, torch.long), t(y), t(grid),
-               t(gfid, torch.long), params)
+    problem = make_problem(torch, mf, dev)
     refs = {"rbf": BASELINE_CPU_NLML, "matern32": BASELINE_CPU_NLML_MATERN32}
 
     # the main path: both units, launch counters from 0
@@ -845,13 +1144,27 @@ def main() -> int:
     if "jax" in sys.modules:
         FAILURES.append("jax was imported")
 
+    # bounds at the unit's shapes (rbf): B1 from its Gram's bytes and flop
+    # (b1_launches); B2's N^3/3 and B3's N^2 M float32-equivalent flop at
+    # the 3xTF32 rate (each reads its N x N float32 operand in far less)
+    N, M = problem[0].shape[0], problem[3].shape[0]
+    bounds = {"ar1_cov_fused": (times["rbf"]["ar1_cov_fused"]["bound_ms"],
+                                times["rbf"]["ar1_cov_fused"]["bound_by"]),
+              "syrk_grad_fused": (N ** 3 / 3 / TF32X3_FLOPS * 1e3,
+                                  "operations"),
+              "posterior_fused": (N * N * M / TF32X3_FLOPS * 1e3,
+                                  "operations")}
     print(nvidia_smi(), flush=True)
+    # no single PyTorch call computes any of the three functions, so no
+    # library time (library_ms null)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name],
          "fit_launches": fit_launches[name], "max_abs_err": errs[name],
          "ms": times["rbf"][name]["ms"],
-         "plain_ms": times["rbf"][name]["plain_ms"]}
+         "plain_ms": times["rbf"][name]["plain_ms"],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
         for name, src, rep in KERNELS]}), flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:",
@@ -866,4 +1179,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

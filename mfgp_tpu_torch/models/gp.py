@@ -262,7 +262,10 @@ def _fit_restarts(inits, X, y, kernel: str, jitter: float, maxiter: int,
 @dataclass
 class GP:
     """Stateful wrapper mirroring the GPy call sites (the JAX package's
-    ``GP``). Tensors keep the device and dtype of ``X``.
+    ``GP``). Tensors keep the device and dtype of ``X``. A tensor ``X``
+    keeps its device; any other input goes to ``device``, the card unless
+    the caller asks for the CPU (``device="cpu"``). After construction
+    ``device`` is the data's.
 
     >>> gp = GP(X, y, kernel="rbf")
     >>> gp.optimize()
@@ -274,6 +277,7 @@ class GP:
     kernel: str = "rbf"
     params: GPParams | None = None
     jitter: float = 0.0
+    device: torch.device | str = _mf.CUDA
 
     def __post_init__(self):
         self.set_XY(self.X, self.y)
@@ -283,10 +287,12 @@ class GP:
 
     def set_XY(self, X, y):
         """Replace the training set (reference ``gp.set_XY``,
-        GPTrainers.py:83)."""
-        self.X = torch.atleast_2d(torch.as_tensor(X))
+        GPTrainers.py:83); inputs that are not tensors go to the model's
+        device."""
+        self.X = torch.atleast_2d(_mf.as_tensor_on(X, self.device))
         self.y = torch.as_tensor(y, dtype=self.X.dtype,
                                  device=self.X.device).reshape(-1)
+        self.device = self.X.device
         self._state = None
 
     @property

@@ -146,11 +146,29 @@ def augment(X: torch.Tensor, fid) -> torch.Tensor:
     return torch.cat([X, f[:, None]], dim=1)
 
 
-def stack_fidelity_lists(X_list: Sequence, y_list: Sequence | None = None):
+CUDA = torch.device("cuda")
+
+
+def as_tensor_on(a, device) -> torch.Tensor:
+    """``a`` as a tensor: a tensor keeps its own device, anything else
+    (numpy arrays, lists) goes to ``device``. Asking for the card where
+    torch has no CUDA device raises; nothing quietly lands on the CPU."""
+    if isinstance(a, torch.Tensor):
+        return a
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the model classes build on the "
+                           "card unless given device='cpu'")
+    return torch.as_tensor(a, device=device)
+
+
+def stack_fidelity_lists(X_list: Sequence, y_list: Sequence | None = None,
+                         device=CUDA):
     """emukit ``convert_xy_lists_to_arrays``: per-fidelity lists, lowest
     fidelity first, to dense ``(X, fid)`` or ``(X, fid, y)``. A fidelity
-    may have no points."""
-    X = torch.cat([torch.as_tensor(x) for x in X_list])
+    may have no points. Tensors keep their device; other inputs go to
+    ``device`` (the card unless asked otherwise)."""
+    X = torch.cat([as_tensor_on(x, device) for x in X_list])
     fid = torch.cat([torch.full((len(x),), i, dtype=torch.long,
                                 device=X.device)
                      for i, x in enumerate(X_list)])
@@ -391,10 +409,11 @@ def _mf_fit_restarts(inits, X, fid, y, fixed_rhos, lower, upper,
     return xs, fs
 
 
-def _as_data(X, fid, y):
-    """(X, fid, y) as tensors on X's device: X at least 2-D, integer
-    labels, y flat in X's dtype (an (N, 1) column is accepted)."""
-    X = torch.atleast_2d(torch.as_tensor(X))
+def _as_data(X, fid, y, device):
+    """(X, fid, y) as tensors on X's device (``device`` when X is not a
+    tensor): X at least 2-D, integer labels, y flat in X's dtype (an
+    (N, 1) column is accepted)."""
+    X = torch.atleast_2d(as_tensor_on(X, device))
     fid = torch.as_tensor(fid, device=X.device).long().reshape(-1)
     y = torch.as_tensor(y, dtype=X.dtype, device=X.device).reshape(-1)
     return X, fid, y
@@ -403,7 +422,10 @@ def _as_data(X, fid, y):
 @dataclass
 class MFGP:
     """Stateful wrapper mirroring emukit's call sites (the JAX package's
-    ``MFGP``). Tensors keep the device and dtype of ``X``.
+    ``MFGP``). Tensors keep the device and dtype of ``X``. A tensor ``X``
+    keeps its device; any other input (numpy arrays, lists) goes to
+    ``device``, the card unless the caller asks for the CPU
+    (``device="cpu"``). After construction ``device`` is the data's.
 
     >>> m = MFGP.from_fidelity_lists([Xlo, Xmid, Xhi], [ylo, ymid, yhi])
     >>> m.optimize(fix_rhos=True)          # reference fixes scale to [1,1]
@@ -417,6 +439,7 @@ class MFGP:
     kernel: str = "rbf"
     params: MFGPParams | None = None
     jitter: float = 0.0
+    device: torch.device | str = CUDA
 
     def __post_init__(self):
         self.set_data(self.X, self.fid, self.y)
@@ -426,14 +449,16 @@ class MFGP:
                                              self.X.device)
 
     @classmethod
-    def from_fidelity_lists(cls, X_list, y_list, **kw):
-        X, fid, y = stack_fidelity_lists(X_list, y_list)
+    def from_fidelity_lists(cls, X_list, y_list, device=CUDA, **kw):
+        X, fid, y = stack_fidelity_lists(X_list, y_list, device)
         return cls(X, fid, y, n_fidelities=len(X_list), **kw)
 
     def set_data(self, X, fid, y):
         """Replace the data (emukit ``set_data``,
-        reference/GPTrainers.py:66)."""
-        self.X, self.fid, self.y = _as_data(X, fid, y)
+        reference/GPTrainers.py:66); inputs that are not tensors go to the
+        model's device."""
+        self.X, self.fid, self.y = _as_data(X, fid, y, self.device)
+        self.device = self.X.device
         self._state = None
 
     @property
@@ -529,7 +554,7 @@ class MFGP:
         ``set_data`` and refit per replan."""
         X_new, fid_new, y_new = _as_data(
             torch.as_tensor(X_new, dtype=self.X.dtype, device=self.X.device),
-            fid_new, y_new)
+            fid_new, y_new, self.X.device)
         state = self.state
         p = self.params
         B = _cov.mf_cross_cov(p.variances, p.lengthscales, p.rhos, state.X,

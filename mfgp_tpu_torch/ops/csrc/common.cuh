@@ -4,8 +4,9 @@
 // (mfgp_tpu/ops/pallas_kernels.py:91-107): per fidelity m the
 // lengthscale-scaled coordinates A[m, n, :] = X[n, :] / l_m (layout (F, N, D),
 // row-major) and the folded AR1 weights w[m, n] = W[m, fid[n]] * sqrt(var_m)
-// (layout (F, N)). All arithmetic is IEEE fp32 (no fast-math); TF32 appears
-// only as the exact hi/lo split of tf32x3.cuh.
+// (layout (F, N)). Arithmetic is IEEE fp32 (no fast-math), except B1's
+// exponential and square root, which come from the special-function unit
+// (ar1_cov.cu); TF32 appears only as the exact hi/lo split of tf32x3.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,15 +19,6 @@ constexpr float kSqrt3 = 1.7320508075688772f;
 constexpr int kRbf = 0;
 constexpr int kMatern32 = 1;
 constexpr int kMaxD = 8;  // input dimensions a kernel accepts (wrappers check)
-
-// Unit-variance base kernel of the squared scaled distance: rbf exp(-r2/2),
-// matern32 (1 + sqrt3 r) exp(-sqrt3 r) with the 1e-36 guard inside the sqrt
-// that ops/kernels.matern32 carries.
-__device__ __forceinline__ float base_kernel(float r2, int kern) {
-  if (kern == kRbf) return expf(-0.5f * r2);
-  const float r = sqrtf(r2 + 1e-36f);
-  return (1.0f + kSqrt3 * r) * expf(-kSqrt3 * r);
-}
 
 // Squared distance of two scaled points as the sum of squared differences.
 // For D = 3 this is three FMAs; unlike the norm expansion |a|^2 + |b|^2 -

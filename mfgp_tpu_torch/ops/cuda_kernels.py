@@ -239,18 +239,43 @@ def _ar1_check(name, X1, X2, noise_diag, kern):
     return device, kid
 
 
+def same_points(X1, fid1, X2, fid2) -> bool:
+    """Whether (X1, fid1) and (X2, fid2) are the same labelled points by
+    identity: each pair one memory, shape, strides and dtype, as when a
+    caller passes the same tensors twice. Then their covariance is a
+    symmetric Gram and B1 computes only half of it. Equal values elsewhere
+    (a clone) do not count: finding those would cost a comparison."""
+    def same(a, b):
+        return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                and a.stride() == b.stride() and a.dtype == b.dtype
+                and a.device == b.device)
+
+    return same(X1, X2) and same(fid1, fid2)
+
+
 def _launch_ar1_cov(A, wA, B, wB, noise, out, kern_id: int,
                     lo=None) -> None:
     """B1 on prepped inputs, into ``out`` (any row stride) or, with ``lo``,
-    into the TF32 planes (out, lo) of the result. Every launch of B1's
-    kernel goes through here and counts under ``ar1_cov_fused``,
-    posterior_fused's staging too."""
+    into the TF32 planes (out, lo) of the result; ``B is A`` (with ``wB is
+    wA``) takes the symmetric Gram's half grid. Every launch of B1's kernel
+    goes through here and counts under ``ar1_cov_fused``, posterior_fused's
+    staging too."""
     F, N, D = A.shape
     M = B.shape[1]
+    sym = B is A and wB is wA
     _launch("mfgp_ar1_cov_f32", A.device, _ptr(A), _ptr(wA), _ptr(B),
             _ptr(wB), _ptr(noise), _ptr(out), _ptr(lo), out.stride(0), N, M,
-            F, D, kern_id)
+            F, D, kern_id, int(sym))
     LAUNCHES["ar1_cov_fused"] += 1
+
+
+def _prep_pair(X1, fid1, X2, fid2, variances, lengthscales, rhos):
+    """(A, wA, B, wB) of a B1 launch; prepped once, ``B is A``, when the
+    two point sets are the same (``same_points``)."""
+    A, wA = _prep(X1, fid1, variances, lengthscales, rhos)
+    if same_points(X1, fid1, X2, fid2):
+        return A, wA, A, wA
+    return (A, wA) + _prep(X2, fid2, variances, lengthscales, rhos)
 
 
 def _planes(rows: int, cols: int, device):
@@ -269,16 +294,17 @@ def ar1_cov_fused(X1, fid1, X2, fid2, variances, lengthscales, rhos,
                   noise_diag=None, kern: str = "rbf") -> torch.Tensor:
     """Fused AR1 covariance (N, M) between labelled point sets (``kern``:
     rbf or matern32), plus ``noise_diag`` on the global diagonal when
-    given (the training Gram, X1 aligned with X2)."""
+    given (the training Gram, X1 aligned with X2). Handed the same tensors
+    twice (``same_points``), the kernel computes the tiles on and below the
+    diagonal and mirrors them, bit for bit the full grid's result."""
     if not X1.is_cuda:
         return ar1_cov_fused_plain(X1, fid1, X2, fid2, variances,
                                    lengthscales, rhos, noise_diag, kern)
     device, kid = _ar1_check("ar1_cov_fused", X1, X2, noise_diag, kern)
     out = torch.empty((X1.shape[0], X2.shape[0]), dtype=torch.float32,
                       device=device)
-    _launch_ar1_cov(*_prep(X1, fid1, variances, lengthscales, rhos),
-                    *_prep(X2, fid2, variances, lengthscales, rhos),
-                    noise_diag, out, kid)
+    _launch_ar1_cov(*_prep_pair(X1, fid1, X2, fid2, variances, lengthscales,
+                                rhos), noise_diag, out, kid)
     return out
 
 
@@ -293,9 +319,8 @@ def ar1_cov_split(X1, fid1, X2, fid2, variances, lengthscales, rhos,
                                    lengthscales, rhos, kern)
     device, kid = _ar1_check("ar1_cov_split", X1, X2, None, kern)
     hi, lo = _planes(X1.shape[0], X2.shape[0], device)
-    _launch_ar1_cov(*_prep(X1, fid1, variances, lengthscales, rhos),
-                    *_prep(X2, fid2, variances, lengthscales, rhos),
-                    None, hi, kid, lo=lo)
+    _launch_ar1_cov(*_prep_pair(X1, fid1, X2, fid2, variances, lengthscales,
+                                rhos), None, hi, kid, lo=lo)
     return hi, lo
 
 
@@ -308,8 +333,11 @@ def rbf_cov_fused(X1, X2, variance, lengthscales, noise_diag=None,
     ls = torch.broadcast_to(torch.as_tensor(lengthscales, **f32).reshape(-1),
                             (D,)).reshape(1, D)
     v = torch.as_tensor(variance, **f32).reshape(1)
+    # one label tensor for both sides when it can serve both, so that the
+    # same points twice reach B1's symmetric Gram (same_points)
     z1 = torch.zeros(X1.shape[0], dtype=torch.long, device=X1.device)
-    z2 = torch.zeros(X2.shape[0], dtype=torch.long, device=X1.device)
+    z2 = (z1 if X2.shape[0] == X1.shape[0] else
+          torch.zeros(X2.shape[0], dtype=torch.long, device=X1.device))
     return ar1_cov_fused(X1, z1, X2, z2, v, ls, v[:0], noise_diag=noise_diag,
                          kern=kern)
 

@@ -54,16 +54,29 @@ def test_gate(dev):
     assert not tcov.use_cuda_kernels(x.double(), "rbf")
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("noise", [False, True])
-def test_ar1_cov_fused(dev, gen, kernel, noise):
-    N, M, D, F = 301, 157, 3, 3  # ragged against the 32-wide tile
+# (N, M, D, F) ragged against B1's 128-wide tiles and 4-wide runs: one
+# point, odd M (no 16-byte stores), D of 1, 3, 5 (padded to 8) and 8, F of
+# 1 to 5 (F > 3 takes the runtime loop over fidelities)
+B1_SHAPES = [(301, 157, 3, 3), (1, 1, 1, 1), (33, 127, 8, 5),
+             (129, 1537, 1, 2), (1537, 129, 3, 3), (127, 33, 5, 1),
+             (1537, 1536, 3, 5)]
+
+
+def _ar1_args(dev, gen, N, M, D, F, square=False):
     X1, X2 = gen.normal(size=(N, D)), gen.normal(size=(M, D))
     f1, f2 = gen.integers(0, F, N), gen.integers(0, F, M)
-    if noise:
-        X2, f2 = X1, f1
-    args = _t(dev, X1, f1, X2, f2, np.array([2.0, 1.5, 0.7]),
-              gen.uniform(0.5, 2.0, (F, D)), np.array([1.1, 0.9]))
+    if square:
+        X2, f2 = X1.copy(), f1.copy()
+    return _t(dev, X1, f1, X2, f2, gen.uniform(0.5, 2.0, F),
+              gen.uniform(0.5, 2.0, (F, D)), gen.uniform(0.7, 1.2, F - 1))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("shape", B1_SHAPES)
+def test_ar1_cov_fused(dev, gen, kernel, noise, shape):
+    N, M, D, F = shape
+    args = _ar1_args(dev, gen, N, M, D, F, square=noise)
     nz = (torch.as_tensor(gen.uniform(0.1, 0.5, N), dtype=torch.float32,
                           device=dev) if noise else None)
     got = ck.ar1_cov_fused(*args, noise_diag=nz, kern=kernel)
@@ -216,19 +229,58 @@ def test_tf32_split_matches_plain(dev, gen, transpose):
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
-def test_ar1_cov_split_matches_plain_split(dev, gen, kernel):
+@pytest.mark.parametrize("shape", [(157, 301, 3, 3), (1, 1, 1, 1),
+                                   (129, 1537, 3, 3), (1537, 33, 8, 5)])
+def test_ar1_cov_split_matches_plain_split(dev, gen, kernel, shape):
     """B1's TF32 planes (B3's staged S^T) are the plain split of B1's own
-    output, bit for bit, at a shape ragged against the 32-wide tile."""
-    M, N, D, F = 157, 301, 3, 3
-    args = _t(dev, gen.normal(size=(M, D)), gen.integers(0, F, M),
-              gen.normal(size=(N, D)), gen.integers(0, F, N),
-              np.array([2.0, 1.5, 0.7]), gen.uniform(0.5, 2.0, (F, D)),
-              np.array([1.1, 0.9]))
+    output, bit for bit, at shapes ragged against the 128-wide tile."""
+    M, N, D, F = shape
+    args = _ar1_args(dev, gen, M, N, D, F)
     hi, lo = ck.ar1_cov_split(*args, kern=kernel)
     rhi, rlo = ck.tf32_split_plain(ck.ar1_cov_fused(*args, kern=kernel).cpu())
     for got, ref in ((hi, rhi), (lo, rlo)):
         assert torch.equal(got.cpu().contiguous().view(torch.int32),
                            ref.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("F", [1, 3])
+@pytest.mark.parametrize("N", [1, 31, 33, 1000, 1031])
+def test_ar1_cov_symmetric_matches_general(dev, gen, kernel, noise, F, N):
+    """The same tensors twice take the symmetric half grid; the same points
+    as two distinct tensors force the full grid. Both agree bit for bit,
+    and so does rbf_cov_fused at F=1."""
+    X, fid, X2, fid2, v, ls, rho = _ar1_args(dev, gen, N, N, 3, F,
+                                             square=True)
+    nz = (torch.as_tensor(gen.uniform(0.1, 0.5, N), dtype=torch.float32,
+                          device=dev) if noise else None)
+    assert ck.same_points(X, fid, X, fid)
+    assert not ck.same_points(X, fid, X2, fid2)
+    sym = ck.ar1_cov_fused(X, fid, X, fid, v, ls, rho, nz, kernel)
+    full = ck.ar1_cov_fused(X, fid, X2, fid2, v, ls, rho, nz, kernel)
+    assert torch.equal(sym.view(torch.int32), full.view(torch.int32))
+    if F == 1:
+        sym = ck.rbf_cov_fused(X, X, v, ls, nz, kernel)
+        full = ck.rbf_cov_fused(X, X2, v, ls, nz, kernel)
+        assert torch.equal(sym.view(torch.int32), full.view(torch.int32))
+
+
+def test_numpy_built_model_fits_on_the_card(dev, gen):
+    """A model built from numpy float32 arrays with no device lands on the
+    card, and its restart fit goes through B1."""
+    N, F = 500, 3
+    X = (gen.random((N, 3)) * 6).astype(np.float32)
+    fid = gen.integers(0, F, N)
+    y = (np.sin(X).sum(1) + 0.1 * gen.normal(size=N)).astype(np.float32)
+    m = tm.MFGP(X, fid, y, jitter=1e-6)
+    assert m.X.is_cuda and m.X.dtype == torch.float32
+    g = tg.GP(X, y, jitter=1e-6)
+    assert g.X.is_cuda
+    before = ck.LAUNCHES["ar1_cov_fused"]
+    f = m.optimize_restarts(n_restarts=2, maxiter=2, tol=1e-3)
+    assert ck.LAUNCHES["ar1_cov_fused"] > before
+    assert np.isfinite(f)
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -274,6 +326,10 @@ def test_wrappers_raise_instead_of_falling_back(dev, gen):
         ck.ar1_cov_fused(X.double(), fid, X.double(), fid, v, ls, rho)
     with pytest.raises(ValueError, match="no CUDA kernel"):
         ck.ar1_cov_fused(X, fid, X, fid, v, ls, rho, kern="cosine")
+    X9 = torch.zeros(50, 9, device=dev)
+    with pytest.raises(ValueError, match="D=9"):
+        ck.ar1_cov_fused(X9, fid, X9, fid, v, torch.ones(1, 9, device=dev),
+                         rho)
     with pytest.raises(ValueError, match="not contiguous"):
         ck.syrk_grad_fused(torch.eye(50, device=dev).T[:, :], v.new_ones(50),
                            X.T.contiguous().T, fid, v, ls, rho, v)

@@ -297,7 +297,7 @@ def test_mfgp_optimize_matches_jax(fix_rhos):
     _, X, fid, y = problem(9, 3)
     kw = dict(kernel="rbf", jitter=JITTER)
     mj = jm.MFGP(X, fid, y, **kw)
-    mt = tm.MFGP(X, fid, y, **kw)
+    mt = tm.MFGP(X, fid, y, device="cpu", **kw)
     fj = mj.optimize(maxiter=25, fix_rhos=fix_rhos,
                      lengthscale_bounds=(1e-4, 100.0))
     ft = mt.optimize(maxiter=25, fix_rhos=fix_rhos,
@@ -323,10 +323,11 @@ def test_mfgp_class_surface_matches_jax():
     the param_array round trip."""
     Xs, ys = _fidelity_lists(10)
     mj = jm.MFGP.from_fidelity_lists(Xs, ys, jitter=JITTER)
-    mt = tm.MFGP.from_fidelity_lists(Xs, ys, jitter=JITTER)
+    mt = tm.MFGP.from_fidelity_lists(Xs, ys, jitter=JITTER, device="cpu")
     assert mt.X.shape == (42, 3) and mt.y.shape == (42,)
     np.testing.assert_array_equal(mt.fid.numpy(), np.asarray(mj.fid))
-    for a, b in zip(tm.stack_fidelity_lists(Xs), jm.stack_fidelity_lists(Xs)):
+    for a, b in zip(tm.stack_fidelity_lists(Xs, device="cpu"),
+                    jm.stack_fidelity_lists(Xs)):
         close(a, b)
     close(tm.augment(mt.X, 2), jm.augment(mj.X, 2))
     close(mt.log_likelihood(), mj.log_likelihood())
@@ -371,7 +372,7 @@ def test_optimize_restarts_behaviour(monkeypatch):
         return inits + 1.0, fs
 
     monkeypatch.setattr(tm, "_mf_fit_restarts", fake)
-    m = tm.MFGP(X, fid, y)
+    m = tm.MFGP(X, fid, y, device="cpu")
     x0 = torch.cat([m.params.log_variances,
                     m.params.log_lengthscales.reshape(-1),
                     m.params.log_noises])
@@ -380,8 +381,8 @@ def test_optimize_restarts_behaviour(monkeypatch):
     close(torch.cat([m.params.log_variances,
                      m.params.log_lengthscales.reshape(-1),
                      m.params.log_noises]), seen[0][2] + 1.0)
-    tm.MFGP(X, fid, y).optimize_restarts(n_restarts=4, seed=3)
-    tm.MFGP(X, fid, y).optimize_restarts(n_restarts=4, seed=4)
+    tm.MFGP(X, fid, y, device="cpu").optimize_restarts(n_restarts=4, seed=3)
+    tm.MFGP(X, fid, y, device="cpu").optimize_restarts(n_restarts=4, seed=4)
     assert torch.equal(seen[0], seen[1])
     assert not torch.equal(seen[0][1:], seen[2][1:])
     with pytest.raises(NotImplementedError, match="free rhos"):
@@ -392,7 +393,7 @@ def test_optimize_restarts_improves():
     """The real restart fit: a lower NLML than the default params, rhos
     untouched, lengthscales inside their bounds."""
     _, X, fid, y = problem(13, 3, N=36)
-    m = tm.MFGP(X, fid, y, jitter=1e-8)
+    m = tm.MFGP(X, fid, y, jitter=1e-8, device="cpu")
     f0 = -m.log_likelihood()
     f = m.optimize_restarts(n_restarts=3, maxiter=40,
                             lengthscale_bounds=(1e-4, 100.0))

@@ -193,7 +193,7 @@ def test_gp_optimize_matches_jax(kernel):
     NLML."""
     _, X, y = data(6, n=40)
     gj = jg.GP(X, y, kernel=kernel, jitter=JITTER)
-    gt = tg.GP(X, y, kernel=kernel, jitter=JITTER)
+    gt = tg.GP(X, y, kernel=kernel, jitter=JITTER, device="cpu")
     close(gt.optimize(maxiter=25), gj.optimize(maxiter=25), rtol=FIT_RTOL)
     close(gt.param_array, gj.param_array, rtol=FIT_RTOL, atol=1e-9)
     close(gt.log_likelihood(), gj.log_likelihood(), rtol=FIT_RTOL)
@@ -206,7 +206,7 @@ def test_gp_class_surface_matches_jax():
     rng, X, y = data(7, n=30)
     Xq = rng.uniform(0, 6, (11, 3))
     gj = jg.GP(X, y.reshape(-1, 1), jitter=JITTER)
-    gt = tg.GP(X, y.reshape(-1, 1), jitter=JITTER)
+    gt = tg.GP(X, y.reshape(-1, 1), jitter=JITTER, device="cpu")
     assert gt.y.shape == (30,)
     close(gt.log_likelihood(), gj.log_likelihood())
     for kw in ({}, {"full_cov": True}, {"include_noise": False},
@@ -236,7 +236,7 @@ def test_optimize_restarts_behaviour(monkeypatch):
     """Row 0 of the inits is the current params, the best finite lane wins,
     a seed repeats; and the real fit lowers the NLML."""
     _, X, y = data(8, n=30)
-    g = tg.GP(X, y, jitter=1e-8)
+    g = tg.GP(X, y, jitter=1e-8, device="cpu")
     f0 = -g.log_likelihood()
     f = g.optimize_restarts(n_restarts=3, maxiter=40, seed=1)
     assert f < f0
@@ -249,10 +249,10 @@ def test_optimize_restarts_behaviour(monkeypatch):
         return inits + 1.0, torch.tensor([float("nan"), 3.0, 2.0])
 
     monkeypatch.setattr(tg, "_fit_restarts", fake)
-    g = tg.GP(X, y)
+    g = tg.GP(X, y, device="cpu")
     x0 = g.params.to_vector().log()
     assert g.optimize_restarts(n_restarts=3, seed=5) == 2.0
     close(seen[0][0], x0)
     close(g.params.to_vector().log(), seen[0][2] + 1.0)
-    tg.GP(X, y).optimize_restarts(n_restarts=3, seed=5)
+    tg.GP(X, y, device="cpu").optimize_restarts(n_restarts=3, seed=5)
     assert torch.equal(seen[0], seen[1])

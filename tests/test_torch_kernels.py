@@ -159,6 +159,28 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     assert ck.LAUNCHES == {name: 0 for name in ck.LAUNCHES}
 
 
+@pytest.mark.parametrize("case,same", [
+    ("same tensors", True), ("a view of the whole", True), ("clone", False),
+    ("offset view", False), ("other fid", False), ("fid clone", False)])
+def test_same_points_decides_the_symmetric_gram(rng, case, same):
+    """B1 takes the symmetric half grid only for the same points by
+    identity; the decision and the prep it leads to, on CPU tensors."""
+    X, fid, _, _, var, ls, rho = _t(*_cov_problem(rng, 3, N=40, M=30))
+    X2, fid2 = {
+        "same tensors": (X, fid),
+        "a view of the whole": (X[:], fid.view(-1)),
+        "clone": (X.clone(), fid),
+        "offset view": (torch.cat([X[:1], X])[1:], fid),
+        "other fid": (X, torch.zeros_like(fid)),
+        "fid clone": (X, fid.clone()),
+    }[case]
+    assert torch.equal(X2, X) or case == "other fid"
+    assert ck.same_points(X, fid, X2, fid2) is same
+    A, wA, B, wB = ck._prep_pair(X, fid, X2, fid2, var, ls, rho)
+    assert (B is A and wB is wA) is same
+    torch.testing.assert_close(B, A, rtol=0, atol=0)
+
+
 def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setenv("PATH", "")
     monkeypatch.delenv("CUDA_HOME", raising=False)
