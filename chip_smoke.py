@@ -40,12 +40,49 @@
    best NLML no higher than at the start, finite params, a finite grid
    posterior with var > 0 on >= 99.9 % of points, B1 launched.
 
+7. Study: the model-comparison study through the port's command line,
+   ``mfgp_tpu_torch.cli.main(["study", "--fit-mode", "device", ...])``, at
+   the reference's own dataset shape: ``duration=3600`` (36,000 filter
+   steps per trajectory, N of about 720 points per dataset at 0.2 Hz), the
+   2,000-point grid with full 2,000 x 2,000 posterior covariances, float32,
+   1 trajectory seed x 2 velocity-noise levels (0.0, 0.2) x 1 field seed.
+   The reference's design is 10 x 3 x 3 = 90 runs of this same shape; 2
+   runs is the only cut, for this script's time (a run takes 1.5 to 2.5
+   minutes of launch-bound fits, at the pace of the host). Held to: every
+   artifact written and parsed, all RMSE finite, every WRMSE finite after
+   the counted float64 repairs (made on the card), each fit's best NLML no
+   higher than at its start, B1 launched in every fit and every evaluation,
+   the models on the card.
+   ``study_f64``: one of those datasets through ``process_dataset`` in
+   float64 with scipy's L-BFGS-B on the card (the plain composition by the
+   gate's rule, so B1's count stays 0), the yardstick for the float32 MFGP
+   RMSE. Then B1 at the study's launch shapes, held against its plain
+   version in float64 and timed, and the device's idle share over one
+   dataset (``torch.profiler``).
+8. NIGP at the unit's width (N=20,000, float32): ``NIGP.fit_native`` (2
+   restarts, 3 iterations), ``NIGP.fit`` (1 x 1, 3 iterations), then
+   ``predict_blocked`` and ``predict`` on the 10,571-point grid; beside it
+   the float32 autodiff gradients of ``nlml`` and ``nlml_native`` at
+   N=2,000 against the float64 plain path, B1 at the NIGP's launch shapes
+   (the 20,000 x 20,000 Gram at F=1 with and without noise, the 10,571 x
+   20,000 and 1,024 x 20,000 cross-covariances) against its plain version
+   in float64, one evaluation's forward and backward times, and the idle
+   share over one fit.
+9. Recursive: ``RecursiveMFGP`` on the same problem's three fidelity lists
+   (2 restarts x 3 iterations per level), then the grid posterior; B1 at a
+   level's launch shapes against its plain version in float64.
+
 Every phase prints one JSON line (the fit phase one per part). A failed
 build or launch raises; a failed check is reported and the script exits 1
 after the last phase. The last line, on success only, is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
+
+    python3 chip_smoke.py --only study,study_f64,nigp,recursive
+
+runs the build and only the named phases of 7 to 9 (while working on
+them); it prints no result line.
 
     python3 chip_smoke.py --b1-times ROOT
 
@@ -57,11 +94,15 @@ no result line.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,6 +115,10 @@ KERNELS = (
      "mfgp_tpu/ops/pallas_kernels.py:486"),
     ("posterior_fused", "mfgp_tpu_torch/ops/csrc/posterior.cu",
      "mfgp_tpu/ops/pallas_kernels.py:300"),
+    # the TF32 hi/lo operand planes of B2 and B3 (the Pallas kernels'
+    # HIGHEST-precision products split their operands inside the dot)
+    ("tf32_split", "mfgp_tpu_torch/ops/csrc/tf32_split.cu",
+     "mfgp_tpu/ops/pallas_kernels.py:486"),
 )
 BASES = ("rbf", "matern32")
 FAILURES: list[str] = []
@@ -252,11 +297,15 @@ def kernel_checks(torch, ck, mf, dev):
                                                                  (333, 1031))
     x = torch.as_tensor(x, dtype=f32, device=dev)
     for transpose in (False, True):
-        same = planes_match(torch, ck.tf32_split(x, transpose=transpose),
+        planes = ck.tf32_split(x, transpose=transpose)
+        same = planes_match(torch, planes,
                             lambda r0, r1, tr=transpose: ck.tf32_split_plain(
                                 x[:, r0:r1] if tr else x[r0:r1], tr))
+        e = max(max_err(a, b) for a, b in zip(
+            planes, ck.tf32_split_plain(x, transpose)))
+        errs["tf32_split"] = max(errs["tf32_split"], e)
         check(f"tf32_split transpose={transpose} (333, 1031)", same,
-              "bit-identical to tf32_split_plain")
+              f"bit-identical to tf32_split_plain (max abs err {e:.1e})")
     for kern in BASES:
         args = (t(X2, f32), fi2, t(X1, f32), fi1, t(var, f32), t(ls, f32),
                 t(rho, f32))
@@ -332,6 +381,60 @@ def b1_checks(torch, ck, dev):
     return max(worst.values())
 
 
+# max abs errors of B1 against its plain version at the later paths' launch
+# shapes (b1_path_check); the kernels line folds them into B1's max_abs_err
+B1_PATH_ERRS = []
+
+
+def b1_path_check(torch, ck, label: str, X1, f1, X2, f2, v, ls, rho,
+                  noise=None, step: int = 2048) -> float:
+    """B1 through the wrapper a path calls (``rbf_cov_fused`` at F=1, else
+    ``ar1_cov_fused``; rbf, float32) at that path's launch shape, held
+    against ``ar1_cov_fused_plain`` in float64 on the same inputs, ``step``
+    rows at a time: max abs err <= 1e-5 times the largest entry (or 1, if
+    that is larger: fitted variances run to the hundreds). A Gram of the
+    same tensors twice (the symmetric half grid) is also held bit for bit
+    against the full grid, which distinct tensors of equal values force."""
+    F = v.shape[0]
+    sym = X1 is X2
+
+    def run(A, fa, B, fb):
+        if F == 1:
+            return ck.rbf_cov_fused(A, B, v[0], ls[0], noise)
+        return ck.ar1_cov_fused(A, fa, B, fb, v, ls, rho, noise)
+
+    got = run(X1, f1, X2, f2)
+    same = None
+    if sym:
+        # rbf_cov_fused shares one label tensor between equal-length sides,
+        # so the full grid at F=1 is asked of ar1_cov_fused directly
+        full = ck.ar1_cov_fused(X1, f1, X1.clone(), f1.clone(), v, ls, rho,
+                                noise)
+        same = torch.equal(got.view(torch.int32), full.view(torch.int32))
+        del full
+    d = [a.double() for a in (X2, v, ls, rho)]
+    err, top = 0.0, 1.0
+    for r0 in range(0, X1.shape[0], step):
+        r1 = min(X1.shape[0], r0 + step)
+        ref = ck.ar1_cov_fused_plain(X1[r0:r1].double(), f1[r0:r1], d[0], f2,
+                                     *d[1:])
+        if noise is not None:
+            i = torch.arange(r1 - r0, device=ref.device)
+            ref[i, i + r0] += noise[r0:r1].double()
+        err = max(err, max_err(got[r0:r1], ref))
+        top = max(top, float(ref.abs().max()))
+        del ref
+    shape = f"{tuple(got.shape)} F={F}" + (" +noise" if noise is not None
+                                           else "")
+    check(f"B1 {label} {shape} vs plain f64",
+          err <= 1e-5 * top and same is not False,
+          f"max abs err {err:.3e} (<= 1e-5 x {top:.4g}, the largest entry "
+          "or 1)" + ("" if same is None else
+          f"; symmetric half grid bit-identical to the full grid: {same}"))
+    B1_PATH_ERRS.append(err)
+    return err
+
+
 def b1_launches(torch, ck, problem, kern: str):
     """B1's launch shapes on the main path, each as (name, kernel call,
     plain call, bytes, flop): the unit's Gram with noise (N^2, F=3), B3's
@@ -369,18 +472,20 @@ def b1_launches(torch, ck, problem, kern: str):
     )
 
 
-def b1_times(torch, ck, problem, kern: str, plain: bool = True) -> dict:
-    """B1 at each main-path launch shape (``b1_launches``), on CUDA events:
-    min of two runs of ten launches, with ``plain`` its plain version in
+def b1_times(torch, ck, problem, kern: str, plain: bool = True,
+             launches=None, reps: int = 10) -> dict:
+    """B1 at each main-path launch shape (``b1_launches``, or the given
+    ``launches``), on CUDA events: min of two runs of ``reps`` launches,
+    with ``plain`` its plain version in
     turns (plain, kernel, kernel, plain); beside each its bound (the larger
     of bytes over 3.35 TB/s and flop over 67 TFLOP/s), which of the two
     sets it, the share of the bound reached, and the write rate achieved."""
     out = {}
-    for name, fused, ref, nbytes, flop in b1_launches(torch, ck, problem,
-                                                      kern):
+    for name, fused, ref, nbytes, flop in (
+            launches or b1_launches(torch, ck, problem, kern)):
         p1 = cuda_ms(torch, ref, reps=1) if plain else None
-        k1 = cuda_ms(torch, fused, reps=10)
-        k2 = cuda_ms(torch, fused, reps=10)
+        k1 = cuda_ms(torch, fused, reps=reps)
+        k2 = cuda_ms(torch, fused, reps=reps)
         p2 = cuda_ms(torch, ref, reps=1) if plain else None
         ms = min(k1, k2)
         t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flop / FP32_FLOPS * 1e3
@@ -716,6 +821,17 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
         torch, lambda tr=tr: ck.tf32_split(S, transpose=tr))
         for tr in (False, True)}
     split_ms["b1_st_planes"] = b1["st_planes"]["ms"]
+    # tf32_split beside its plain version (integer operations on the
+    # pattern, 2,048 rows at a time: its int64 temporaries are 8 bytes per
+    # entry) and its bound: 4 N^2 bytes read, two planes written
+    def split_plain():
+        for r0 in range(0, N, 2048):
+            ck.tf32_split_plain(S[r0:r0 + 2048])
+
+    kernel_ms["tf32_split"] = {
+        "ms": split_ms["transpose=False"],
+        "plain_ms": cuda_ms(torch, split_plain, reps=1),
+        "bound_ms": 12 * N * N / HBM_BPS * 1e3, "bound_by": "bytes"}
     # the same planes at the unit's shapes against the plain split, bit for
     # bit (a wrong plane fails here by name, not only as B2/B3 error)
     for tr in (False, True):
@@ -832,28 +948,38 @@ def autodiff_checks(torch, mf, cov, dev):
     emit("fit", part="autodiff_checks", errs=errs)
 
 
-class FitProbe:
-    """Counts and times (CUDA-synchronised, host clock) every NLML
-    evaluation a fit makes, and keeps each restart lane's final NLML and
-    iteration count, by wrapping the module-level functions the models'
-    fit methods call; ``restore`` puts them back. The package is
-    unchanged."""
+class PathProbe:
+    """Records what a path's fits and evaluations do, by wrapping
+    the module-level functions they call: each optimiser run (NLML at its
+    first evaluation, final NLML per lane, evaluations, B1 launches,
+    closed-form backwards, seconds), each ``train_models`` and
+    ``evaluate_models`` call, and ``run_study``'s stage times. With
+    ``sync_evals`` every evaluation is timed too (CUDA-synchronised host
+    clock, ``eval_seconds`` of the run's record), which serialises host and
+    card and so is left off where the path's own pace is measured.
+    ``restore`` puts the functions back; the package is unchanged."""
 
-    def __init__(self, torch, mods):
-        self.torch = torch
+    def __init__(self, torch, ck, cov, fit_mods, trainers=None, study=None,
+                 sync_evals: bool = False):
+        self.torch, self.ck = torch, ck
+        self.sync_evals = sync_evals
         self.saved = []
-        self.reset()
-        for mod in mods:
-            self._wrap(mod, "nlml_value_and_grad", self._analytic)
-            self._wrap(mod, "autograd_value_and_grad", self._autodiff)
-            self._wrap(mod, "batched_lbfgs", self._lanes)
-
-    def reset(self):
-        self.evals = {"analytic": [], "autodiff": []}  # (seconds, value)
-        self.lanes = None  # (final NLML, iterations) per lane
+        self.fits, self.evals, self.trains = [], [], []
+        self.timings = None
+        self.backwards = 0
+        for mod in fit_mods:
+            family = mod.__name__.rsplit(".", 1)[-1]
+            self._wrap(mod, "batched_lbfgs", self._lbfgs(family))
+            self._wrap(mod, "scipy_lbfgsb", self._scipy(family))
+        self._wrap(cov, "_ar1_cov_bwd", self._bwd)
+        if trainers is not None:
+            self._wrap(trainers, "evaluate_models", self._evaluate)
+            self._wrap(trainers, "train_models", self._train)
+        if study is not None:
+            self._wrap(study, "run_study", self._study)
 
     def restore(self):
-        for mod, name, orig in self.saved:
+        for mod, name, orig in reversed(self.saved):
             setattr(mod, name, orig)
 
     def _wrap(self, mod, name, make):
@@ -861,35 +987,114 @@ class FitProbe:
         self.saved.append((mod, name, orig))
         setattr(mod, name, make(orig))
 
-    def _timed(self, kind, fn, *args, **kw):
+    def _b1(self) -> int:
+        return self.ck.LAUNCHES["ar1_cov_fused"]
+
+    def _run(self, rec, fn):
+        """``fn()`` timed (CUDA-synchronised host clock) into ``rec`` with
+        the B1 launches and closed-form backwards it made."""
+        b1, bw = self._b1(), self.backwards
         self.torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn(*args, **kw)
+        out = fn()
         self.torch.cuda.synchronize()
-        self.evals[kind].append((time.perf_counter() - t0, float(out[0])))
+        rec.update(seconds=time.perf_counter() - t0, b1=self._b1() - b1,
+                   backwards=self.backwards - bw)
         return out
 
-    def _analytic(self, orig):
-        return lambda *a, **kw: self._timed("analytic", orig, *a, **kw)
+    def _counted(self, rec, f):
+        """``f`` counting its calls into ``rec`` and keeping the value of
+        the first (a fit's starting NLML: lane 0 starts at the current or
+        heuristic parameters)."""
+        if f is None:
+            return None
+        rec["eval_seconds"] = []
 
-    def _autodiff(self, orig):
-        def make(fun, dtype, device):
-            vg = orig(fun, dtype, device)
-            return lambda x: self._timed("autodiff", vg, x)
+        def g(x):
+            if self.sync_evals:
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = f(x)
+            if self.sync_evals:
+                self.torch.cuda.synchronize()
+                rec["eval_seconds"].append(time.perf_counter() - t0)
+            rec["evals"] += 1
+            if rec["f0"] is None:
+                v = out[0] if isinstance(out, tuple) else out
+                rec["f0"] = v.detach() if hasattr(v, "detach") else v
+            return out
+        return g
+
+    def _lbfgs(self, family):
+        def make(orig):
+            def run(fun, x0, *a, value_and_grad=None, **kw):
+                rec = dict(family=family, optimiser="batched_lbfgs", evals=0,
+                           f0=None, on_cuda=bool(x0.is_cuda),
+                           dtype=str(x0.dtype))
+                x, fs, ks = self._run(rec, lambda: orig(
+                    self._counted(rec, fun), x0, *a,
+                    value_and_grad=self._counted(rec, value_and_grad), **kw))
+                rec.update(f0=float(rec["f0"]),
+                           lanes=fs.double().cpu().tolist(),
+                           iterations=ks.cpu().tolist())
+                self.fits.append(rec)
+                return x, fs, ks
+            return run
         return make
 
-    def _lanes(self, orig):
+    def _scipy(self, family):
+        def make(orig):
+            def run(vg, x0, **kw):
+                rec = dict(family=family, optimiser="scipy", evals=0, f0=None)
+                xo, fo, n = self._run(rec, lambda: orig(
+                    self._counted(rec, vg), x0, **kw))
+                rec.update(f0=float(rec["f0"]), lanes=[fo], iterations=None)
+                self.fits.append(rec)
+                return xo, fo, n
+            return run
+        return make
+
+    def _bwd(self, orig):
         def run(*a, **kw):
-            x, fs, ks = orig(*a, **kw)
-            self.lanes = (fs.double().cpu().tolist(), ks.cpu().tolist())
-            return x, fs, ks
+            self.backwards += 1
+            return orig(*a, **kw)
+        return run
+
+    def _evaluate(self, orig):
+        def run(models, *a, **kw):
+            rec = {}
+            metrics, grids = self._run(rec, lambda: orig(models, *a, **kw))
+            rec["f64"] = metrics["wmse_f64_count"]
+            self.evals.append(rec)
+            return metrics, grids
+        return run
+
+    def _train(self, orig):
+        def run(*a, **kw):
+            rec = {}
+            models = self._run(rec, lambda: orig(*a, **kw))
+            rec["devices"] = sorted({str(t.device) for t in (
+                models.mf.X, models.sf.X, models.sf_tp.X,
+                models.nigp.X_train_)})
+            rec["dtypes"] = sorted({str(models.mf.X.dtype),
+                                    str(models.nigp.X_train_.dtype)})
+            rec["n"] = int(models.sf.X.shape[0])
+            self.trains.append(rec)
+            return models
+        return run
+
+    def _study(self, orig):
+        def run(*a, **kw):
+            self.timings = kw.setdefault("timings", {})
+            return orig(*a, **kw)
         return run
 
 
 def one_fit(torch, ck, probe, model, name, kern, fit, grid):
-    """Phase 6: one full-width fit through the model's own entry point,
-    then its grid posterior; checked and printed."""
-    probe.reset()
+    """Phase 6: one full-width fit through the model's own entry point
+    (one optimiser run, which ``probe`` records with every evaluation
+    timed), then its grid posterior; checked and printed."""
+    probe.fits.clear()
     b1 = ck.LAUNCHES["ar1_cov_fused"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -899,11 +1104,12 @@ def one_fit(torch, ck, probe, model, name, kern, fit, grid):
     seconds = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     b1 = ck.LAUNCHES["ar1_cov_fused"] - b1
-    kind = "autodiff" if probe.evals["autodiff"] else "analytic"
-    evals = probe.evals[kind]
-    # the first evaluation is at the initial params (lane 0's start)
-    f0 = evals[0][1]
-    lanes, iters = probe.lanes or ([best], None)
+    run, = probe.fits
+    # scipy runs on the autodiff NLML, the restart fits on the analytic
+    # gradient; the first evaluation is at the initial params (lane 0's)
+    kind = "autodiff" if run["optimiser"] == "scipy" else "analytic"
+    f0, lanes, iters = run["f0"], run["lanes"], run["iterations"]
+    times = run["eval_seconds"]
     label = f"fit {name} {kern}"
     check(f"{label} lanes finite", all(np.isfinite(lanes)),
           f"final NLML per lane {lanes}")
@@ -926,9 +1132,8 @@ def one_fit(torch, ck, probe, model, name, kern, fit, grid):
     check(f"{label} predict", finite and pos >= 0.999,
           f"grid posterior finite: {finite}, share var > 0 {pos:.6f} "
           "(>= 0.999)")
-    times = [e[0] for e in evals]
     emit("fit", part=name, base=kern, N=int(model.X.shape[0]),
-         evaluations=len(evals), eval_kind=kind, iterations=iters,
+         evaluations=run["evals"], eval_kind=kind, iterations=iters,
          lane_nlml=lanes, nlml_initial=f0, nlml_best=best, seconds=seconds,
          eval_seconds_sum=sum(times), eval_seconds=times,
          **{f"s_per_{kind}_eval": float(np.median(times))},
@@ -1063,7 +1268,7 @@ def fit_phase(torch, ck, mf, gp, la, cov, dev, problem):
                          params=sf_params(), jitter=1e-6),
          lambda m: m.optimize_restarts(**restarts)),
     )
-    probe = FitProbe(torch, (mf, gp))
+    probe = PathProbe(torch, ck, cov, (mf, gp), sync_evals=True)
     ck.reset_launches()
     try:
         for name, kern, make, fit in fits:
@@ -1080,11 +1285,669 @@ def fit_phase(torch, ck, mf, gp, la, cov, dev, problem):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 7-9: the study path
+# ---------------------------------------------------------------------------
+STUDY_ARGS = ["--trajectories", "1", "--vmn", "0.0", "0.2", "--field-seeds",
+              "0", "--duration", "3600"]
+STUDY_RUNS = 2  # trajectories x noise levels x field seeds of STUDY_ARGS
+# the study dataset that the float64 yardstick and the profiler window
+# take: trajectory 0 at the higher velocity-noise level
+STUDY_PICK = "0.2_fieldMeas_0_T0_0.2"
+
+
+def fit_checks(label: str, fits, b1_per_eval: int = 1) -> None:
+    """Every optimiser run of ``fits``: finite lanes, the best NLML no
+    higher than at the start, B1 launched at least ``b1_per_eval`` times
+    per evaluation (0: the float64 path, B1 not at all)."""
+    bad_lane, climbed, no_b1 = [], [], []
+    for i, r in enumerate(fits):
+        lanes = [f for f in r["lanes"] if np.isfinite(f) and f < 1e19]
+        if len(lanes) < len(r["lanes"]):
+            bad_lane.append((i, r["family"], r["lanes"]))
+        if not lanes or min(lanes) > r["f0"]:
+            climbed.append((i, r["family"], r["f0"], r["lanes"]))
+        if b1_per_eval and r["b1"] < b1_per_eval * r["evals"]:
+            no_b1.append((i, r["family"], r["b1"], r["evals"]))
+        if not b1_per_eval and r["b1"]:
+            no_b1.append((i, r["family"], r["b1"], r["evals"]))
+    n = len(fits)
+    check(f"{label} lanes finite", not bad_lane,
+          f"{n} optimiser runs; runs with a non-finite lane: {bad_lane}")
+    check(f"{label} NLML", not climbed,
+          f"best NLML <= NLML at the start in {n - len(climbed)} of {n} "
+          f"runs; others: {climbed}")
+    want = (f">= {b1_per_eval} per evaluation" if b1_per_eval
+            else "none (float64 takes the plain composition)")
+    check(f"{label} B1 in every fit", not no_b1,
+          f"B1 launches {want} in {n - len(no_b1)} of {n} runs; others "
+          f"(run, family, B1, evaluations): {no_b1}")
+
+
+def by_family(fits, key: str) -> dict:
+    out = {}
+    for r in fits:
+        out[r["family"]] = out.get(r["family"], 0) + r[key]
+    return out
+
+
+def device_idle_share(torch, fn) -> dict:
+    """``fn()`` under ``torch.profiler`` (device activity only): wall
+    seconds, the summed kernel and copy time on the device, and the idle
+    share ``1 - busy / wall``. Where the profiler reports no device time
+    the shares are None and the phase says "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+
+    def us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return getattr(e, name)
+        return 0.0
+
+    busy = sum(us(e) for e in rows) / 1e6
+    top = sorted(rows, key=us, reverse=True)[:6]
+    measured = busy > 0
+    return {"wall_s": wall, "device_busy_s": busy if measured else None,
+            "idle_share": 1.0 - busy / wall if measured else None,
+            "device_events": int(sum(e.count for e in rows)),
+            "top": [[e.key[:60], us(e) / 1e6, int(e.count)] for e in top],
+            "note": None if measured else
+            "torch.profiler reported no device time: not measured"}
+
+
+def kalman_times(torch, dev) -> dict:
+    """The filter alone at the study's length: 36,000 steps, two
+    trajectories on the batch axis, float64, as CUDA graphs (the default,
+    twice), and eagerly over the first tenth of the steps, with the largest
+    difference between the two over those steps."""
+    from mfgp_tpu_torch.data.study import scripted_trajectory
+    from mfgp_tpu_torch.estimation.kalman import filter_trajectory
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    cfg = SimConfig(seed=0, vmn=0.2)
+    trajs = [scripted_trajectory(s, cfg, duration=3600.1).data
+             for s in (0, 1)]
+    t = np.stack([tr[:, 0] for tr in trajs])
+    pos = np.stack([tr[:, 1:] for tr in trajs])
+    noise = np.random.default_rng(0).standard_normal((2, t.shape[1] - 1, 6))
+    model = cfg.kf_model()
+    n = t.shape[1] - 1
+    cut = n // 10 + 1  # the eager loop runs a tenth of the steps
+    runs = (("graphs_128", None, n + 1), ("graphs_128_again", None, n + 1),
+            ("eager_tenth", 0, cut))
+    out, secs = {}, {}
+    for name, steps, rows in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = filter_trajectory(model, t[:, :rows], pos[:, :rows],
+                                      noise=noise[:, :rows - 1],
+                                      graph_steps=steps)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    diff = max(max_err(out["graphs_128"][k][:, :cut - 1],
+                       out["eager_tenth"][k]) for k in ("xh", "sig", "err"))
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in out["graphs_128"].values())
+    check("kalman graphs = eager", finite and diff <= 1e-9,
+          f"{n} steps x 2 trajectories on {model.P0.device}: finite "
+          f"{finite}; graphs against the eager loop over the first "
+          f"{cut - 1} steps: max abs difference {diff:.3e} (<= 1e-9)")
+    return {"steps": int(n), "batch": 2, "eager_steps": int(cut - 1),
+            "seconds": secs,
+            "us_per_step": {"graphs_128": secs["graphs_128_again"] / n * 1e6,
+                            "eager": secs["eager_tenth"] / (cut - 1) * 1e6},
+            "max_abs_diff": diff}
+
+
+def study_b1_times(torch, ck, dev, N: int, M: int) -> dict:
+    """B1 at the study's launch shapes: the N x N Gram with noise at F=1
+    and F=3, the M x N cross-covariance and the M x M Gram of the grid
+    (F=3 for the MFGP, F=1 for the other three), rbf, float32: each first
+    held against the plain version (``b1_path_check``), then the first four
+    timed; bytes and flop as ``b1_launches`` counts them."""
+    rng = np.random.default_rng(5)
+    f32 = torch.float32
+
+    def t(a, dt=f32):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    D, F = 3, 3
+    X, G = t(rng.uniform(0, 10, (N, D))), t(rng.uniform(0, 10, (M, D)))
+    fid, gfid = t(rng.integers(0, F, N), torch.long), t(np.full(M, F - 1),
+                                                        torch.long)
+    v, ls, rho = t(np.array([2.0, 1.5, 0.7])), t(rng.uniform(1, 3, (F, D))), \
+        t(np.array([1.0, 1.0]))
+    noise = t(rng.uniform(0.1, 0.2, N))
+    per = 3 * D + 5
+    z = torch.zeros(N, dtype=torch.long, device=dev)
+
+    def pts(n):
+        return (n * D + n) * 4 + n * 8
+
+    zm = torch.zeros(M, dtype=torch.long, device=dev)
+    one = (v[2:], ls[2:], rho[:0])
+    for a in ((X, z, X, z, *one, noise), (X, fid, X, fid, v, ls, rho, noise),
+              (G, gfid, X, fid, v, ls, rho), (G, gfid, G, gfid, v, ls, rho),
+              (G, zm, X, z, *one), (G, zm, G, zm, *one)):
+        b1_path_check(torch, ck, "study", *a)
+
+    launches = (
+        (f"gram_{N}_F1", lambda: ck.rbf_cov_fused(X, X, v[2], ls[2], noise),
+         lambda: ck.ar1_cov_fused_plain(X, z, X, z, v[2:], ls[2:], rho[:0],
+                                        noise),
+         4 * N * N + pts(N), N * (N + 1) / 2 * per),
+        (f"gram_{N}_F3", lambda: ck.ar1_cov_fused(X, fid, X, fid, v, ls, rho,
+                                                  noise),
+         lambda: ck.ar1_cov_fused_plain(X, fid, X, fid, v, ls, rho, noise),
+         4 * N * N + pts(N), N * (N + 1) / 2 * F * per),
+        (f"cross_{M}x{N}_F3", lambda: ck.ar1_cov_fused(G, gfid, X, fid, v,
+                                                       ls, rho),
+         lambda: ck.ar1_cov_fused_plain(G, gfid, X, fid, v, ls, rho),
+         4 * M * N + pts(N) + pts(M), M * N * F * per),
+        (f"gram_{M}_F3", lambda: ck.ar1_cov_fused(G, gfid, G, gfid, v, ls,
+                                                  rho),
+         lambda: ck.ar1_cov_fused_plain(G, gfid, G, gfid, v, ls, rho),
+         4 * M * M + pts(M), M * (M + 1) / 2 * F * per),
+    )
+    return b1_times(torch, ck, None, "rbf", launches=launches, reps=50)
+
+
+def study_phase(torch, ck, cov, dev) -> dict:
+    """Phase 7 (see the module docstring). Returns the launches of the
+    study's run, counted from 0 just before it, and what the later phases
+    need of it."""
+    from mfgp_tpu_torch import cli
+    from mfgp_tpu_torch.data import io as tio
+    from mfgp_tpu_torch.data import study, trainers
+    from mfgp_tpu_torch.models import gp, nigp
+    from mfgp_tpu_torch.models import mfgp as mf
+
+    out_dir = tempfile.mkdtemp(prefix="mfgp_study_")
+    probe = PathProbe(torch, ck, cov, (mf, gp, nigp), trainers, study)
+    buf = io.StringIO()
+    ck.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["study", "--out", out_dir, "--fit-mode", "device"]
+                     + STUDY_ARGS)
+    finally:
+        probe.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    summary = json.loads(buf.getvalue())
+
+    res = os.path.join(out_dir, "GPResults")
+    names = sorted(f for f in os.listdir(res) if f.startswith("MSE_"))
+    parsed = {f: tio.parse_mse(os.path.join(res, f)) for f in names}
+    with open(os.path.join(res, "results.csv")) as f:
+        rows = f.read().splitlines()
+    R = STUDY_RUNS
+    check("study artifacts", len(names) == R and len(rows) == R + 1
+          and all(len(p) == 8 for p in parsed.values())
+          and summary["overall"]["n"] == R,
+          f"{len(names)} MSE files of 8 metrics each, results.csv with "
+          f"{len(rows) - 1} rows, summary n={summary['overall']['n']} "
+          f"({R} runs of the reference's 90-run design: the only cut)")
+    rm = [v for p in parsed.values() for k, v in p.items()
+          if k.startswith("RMSE")]
+    wm = [v for p in parsed.values() for k, v in p.items()
+          if k.startswith("WRMSE")]
+    repairs = probe.timings["wmse_f64_count"]
+    check("study RMSE finite", len(rm) == 4 * R
+          and bool(np.isfinite(rm).all()),
+          f"{len(rm)} RMSE values, finite: {bool(np.isfinite(rm).all())}")
+    check("study WRMSE finite", len(wm) == 4 * R
+          and bool(np.isfinite(wm).all())
+          and repairs == sum(e["f64"] for e in probe.evals),
+          f"{len(wm)} WRMSE values finite after {repairs} float64 "
+          f"repair(s) of {4 * R}, made on the card "
+          f"(wmse_f64_count={repairs})")
+    fit_checks("study", probe.fits)
+    check("study fits per dataset", len(probe.fits) == 4 * R
+          and len(probe.trains) == R,
+          f"{len(probe.fits)} optimiser runs over {len(probe.trains)} "
+          f"datasets: {by_family(probe.fits, 'evals')} evaluations")
+    check("study B1 in every evaluation",
+          len(probe.evals) == R and all(e["b1"] >= 12 for e in probe.evals),
+          f"B1 launches per evaluate_models call "
+          f"{[e['b1'] for e in probe.evals]} (>= 12: four Grams, four "
+          "cross-covariances, four grid Grams)")
+    devices = sorted({d for r in probe.trains for d in r["devices"]})
+    dtypes = sorted({d for r in probe.trains for d in r["dtypes"]})
+    check("study on the card", devices == [str(dev)] and dtypes
+          == ["torch.float32"] and all(r["on_cuda"] for r in probe.fits),
+          f"model tensors on {devices} in {dtypes}; every optimiser run "
+          "on CUDA parameters (a wrapper counts only where it launches, so "
+          "no launch was made on a CPU tensor)")
+    check("study launches", launches["ar1_cov_fused"] > 0,
+          f"kernel launches over the study: {launches} (B2 and B3 are not "
+          "on this path: its fits take inv_mode=None, as in JAX)")
+
+    tm = probe.timings
+    fits_s = by_family(probe.fits, "seconds")
+    train_s = sum(r["seconds"] for r in probe.trains)
+    eval_s = sum(e["seconds"] for e in probe.evals)
+    stages = {"filter_s": tm["filter_s"],
+              "field_binning_and_their_files_s": tm["pipeline_s"],
+              "fits_s": fits_s,
+              "train_models_other_s": train_s - sum(fits_s.values()),
+              "evaluation_s": eval_s,
+              "load_and_artifacts_s": tm["trainers_s"] - train_s - eval_s,
+              "aggregate_s": tm["aggregate_s"]}
+    emit("study", wall_s=wall, stages=stages, nvidia_smi=nvidia_smi(),
+         n_per_dataset=[r["n"] for r in probe.trains], grid=2000,
+         # in run order: the noise levels as given, trajectories within
+         train_s_per_dataset=[r["seconds"] for r in probe.trains],
+         launches=launches, wmse_f64_count=repairs,
+         f64_repairs_per_dataset=[e["f64"] for e in probe.evals],
+         evaluations=by_family(probe.fits, "evals"),
+         b1_in_fits=by_family(probe.fits, "b1"),
+         b1_per_evaluate_models=[e["b1"] for e in probe.evals],
+         iterations=[[r["family"], r["iterations"]] for r in probe.fits],
+         metrics=parsed, summary_overall=summary["overall"])
+    pick_n = probe.trains[names.index(f"MSE_{STUDY_PICK}.txt")]["n"]
+    return {"launches": launches, "out_dir": out_dir, "n": pick_n,
+            "rmse_mf": parsed[f"MSE_{STUDY_PICK}.txt"]["RMSE mf"]}
+
+
+def study_f64_phase(torch, ck, cov, dev, st: dict) -> None:
+    """Phase 7, the yardstick: one study dataset in float64 through scipy's
+    L-BFGS-B on the card (no kernel by the gate's rule), then B1's times at
+    the study's shapes and the idle share over one float32 dataset."""
+    from mfgp_tpu_torch.data import trainers
+    from mfgp_tpu_torch.models import gp, nigp
+    from mfgp_tpu_torch.models import mfgp as mf
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    data = os.path.join(st["out_dir"], "GPDataSets",
+                        f"GPData_{STUDY_PICK}.csv")
+    settings = os.path.join(st["out_dir"], "FieldData", "FieldSettings0.txt")
+    cfg = SimConfig(seed=0, vmn=0.2)
+    probe = PathProbe(torch, ck, cov, (mf, gp, nigp), trainers)
+    ck.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        models, metrics = trainers.process_dataset(
+            data, settings, None, cfg=cfg, fit_mode="scipy",
+            dtype=np.float64)
+    finally:
+        probe.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b1 = ck.LAUNCHES["ar1_cov_fused"]
+    check("study_f64 on the card, plain path",
+          models.mf.X.is_cuda and models.mf.X.dtype == torch.float64
+          and b1 == 0,
+          f"data on {models.mf.X.device} in {models.mf.X.dtype}; B1 "
+          f"launches {b1} (0: float64 takes the plain composition by "
+          "use_cuda_kernels' rule)")
+    fit_checks("study_f64", probe.fits, b1_per_eval=0)
+    ratio = st["rmse_mf"] / metrics["RMSE mf"]
+    check("study MFGP RMSE vs float64", 0.5 <= ratio <= 2.0,
+          f"float32 device mode {st['rmse_mf']:.4f} / float64 scipy "
+          f"{metrics['RMSE mf']:.4f} = {ratio:.3f} on dataset {STUDY_PICK} "
+          "(within a factor of 2: the two modes run different optimisers "
+          "from different starts)")
+    emit("study_f64", wall_s=wall, dataset=STUDY_PICK, n=st["n"],
+         metrics=metrics, fits_s=by_family(probe.fits, "seconds"),
+         evaluations=by_family(probe.fits, "evals"),
+         evaluation_s=sum(e["seconds"] for e in probe.evals),
+         rmse_mf_f32_over_f64=ratio)
+
+    emit("study_b1_times", nvidia_smi=nvidia_smi(),
+         times=study_b1_times(torch, ck, dev, st["n"], 2000))
+    emit("kalman_times", nvidia_smi=nvidia_smi(), **kalman_times(torch, dev))
+    emit("study_idle", nvidia_smi=nvidia_smi(),
+         **study_idle_window(torch, trainers, data, settings, cfg))
+
+
+def study_idle_window(torch, trainers, data, settings, cfg) -> dict:
+    """The device's idle share over one study dataset's work at a bounded
+    depth, under ``torch.profiler``: the float32 restart fits of the MFGP
+    and the SFGP (2 lanes x 10 iterations each), the NIGP's native fit (1
+    lane x 5 iterations) and the whole ``evaluate_models``, through the
+    same methods ``train_models`` calls. (A whole dataset at the default
+    depth makes millions of kernel events.)"""
+    from mfgp_tpu_torch.data.io import load_gp_dataset
+    from mfgp_tpu_torch.fields.wrbf import parse_field_settings
+
+    ds = load_gp_dataset(data, t_cut=cfg.t_cut)
+    field = parse_field_settings(settings)
+    models = trainers.train_models(ds, optimize=False, dtype=np.float32)
+    X, y = ds.X_est.astype(np.float32), ds.y.astype(np.float32)
+
+    def window():
+        models.mf.optimize_restarts(n_restarts=2, maxiter=10, tol=1e-3)
+        models.sf.optimize_restarts(n_restarts=2, maxiter=10, tol=1e-3)
+        models.nigp.fit_native(X, y, n_restarts=1, maxiter=5)
+        trainers.evaluate_models(models, cfg.test_points(), field)
+
+    window()  # warm: the first calls pay cuSOLVER's and cuBLAS' set-up
+    out = device_idle_share(torch, window)
+    out["window"] = ("MFGP and SFGP optimize_restarts (2 lanes x 10 "
+                     "iterations), NIGP.fit_native (1 x 5), "
+                     f"evaluate_models; float32, dataset {STUDY_PICK}, "
+                     f"N={ds.n}")
+    return out
+
+
+def nigp_gradient_checks(torch, nigp, dev) -> dict:
+    """Phase 8, checks: the float32 autodiff gradients of ``nlml`` and
+    ``nlml_native`` on the card (B1 forward, closed-form backward) at the
+    benchmark's problem cut to N=2,000 against the float64 plain path:
+    max |err| / max |ref| <= 2e-3 per group of entries (lengthscales,
+    sigma_f, sigma_y, sigma_x)."""
+    from bench import _theta, build_problem
+
+    Xn, _, yn, _, _ = build_problem(2000, 16, seed=1)
+    v, l, _, nz = _theta()
+    lh = np.concatenate([np.log(l[2]), [np.log(v[2]), 0.5 * np.log(nz[2])],
+                         np.log(0.1 * l[2])])
+    groups = (slice(0, 3), slice(3, 4), slice(4, 5), slice(5, 8))
+    errs = {}
+    for name in ("nlml", "nlml_native"):
+        out = {}
+        for dt in (torch.float32, torch.float64):
+            X = torch.as_tensor(Xn, dtype=dt, device=dev)
+            y = torch.as_tensor(yn, dtype=dt, device=dev)
+            h = torch.tensor(lh, dtype=dt, device=dev, requires_grad=True)
+            if name == "nlml":
+                with torch.no_grad():
+                    _, gf = nigp.posterior_mean_grads(
+                        X, y, torch.exp(h[:3]), torch.exp(h[3]),
+                        torch.exp(h[4]))
+                val = nigp.nlml(h, X, y, gf)
+            else:
+                val = nigp.nlml_native(h, X, y)
+            out[dt] = (float(val.detach()), torch.autograd.grad(val, h)[0])
+        g32, g64 = out[torch.float32][1], out[torch.float64][1]
+        e = field_errs([g32[g] for g in groups], [g64[g] for g in groups])
+        rel = abs(out[torch.float32][0] - out[torch.float64][0]) / abs(
+            out[torch.float64][0])
+        check(f"nigp autodiff gradient {name} N=2000",
+              max(e) <= 2e-3 and rel <= 1e-3,
+              f"per group (ls, sigma_f, sigma_y, sigma_x) vs f64 {e} "
+              f"(<= 2e-3); value rel err {rel:.3e} (<= 1e-3)")
+        errs[name] = {"groups": e, "value_rel_err": rel,
+                      "grad_f64": g64.cpu().numpy().round(6).tolist()}
+    return errs
+
+
+def nigp_eval_phases(torch, nigp, X, y) -> dict:
+    """Phase 8: one evaluation's forward and backward at full size on CUDA
+    events, native and alternating, at the fits' starting point (the
+    second of two evaluations each)."""
+    lh0 = nigp._init_log_hyp(X, y)
+    with torch.no_grad():
+        h = torch.as_tensor(lh0, dtype=X.dtype, device=X.device)
+        _, gf = nigp.posterior_mean_grads(X, y, torch.exp(h[:3]),
+                                          torch.exp(h[3]), torch.exp(h[4]))
+    out = {}
+    for name, fn in (("native", lambda h: nigp.nlml_native(h, X, y)),
+                     ("alternating", lambda h: nigp.nlml(h, X, y, gf))):
+        for _ in range(2):
+            h = torch.tensor(lh0, dtype=X.dtype, device=X.device,
+                             requires_grad=True)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ev[0].record()
+            val = fn(h)
+            ev[1].record()
+            torch.autograd.grad(val, h)
+            ev[2].record()
+            torch.cuda.synchronize()
+        out[name] = {"forward_ms": ev[0].elapsed_time(ev[1]),
+                     "backward_ms": ev[1].elapsed_time(ev[2]),
+                     "sum_ms": ev[0].elapsed_time(ev[2]),
+                     "nlml": float(val.detach()),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del val
+    return out
+
+
+def nigp_phase(torch, ck, cov, dev, problem) -> dict:
+    """Phase 8 (see the module docstring); returns the launches of the two
+    fits and the two grid posteriors, counted from 0."""
+    from mfgp_tpu_torch.models import nigp
+
+    Xt, _, yt, gt, _, _ = problem
+    N, M = Xt.shape[0], gt.shape[0]
+    grad_errs = nigp_gradient_checks(torch, nigp, dev)
+    torch.cuda.empty_cache()
+    phases = nigp_eval_phases(torch, nigp, Xt, yt)
+    # B1 at this path's launch shapes (F=1) against its plain version: the
+    # Gram as _AR1TrainCov and sf_train_cov ask for it (without and with
+    # noise), predict's whole cross-covariance, predict_blocked's row block
+    p = problem[5]
+    one = (p.variances[2:], p.lengthscales[2:], p.rhos[:0])
+    zn = torch.zeros(N, dtype=torch.long, device=dev)
+    zm = torch.zeros(M, dtype=torch.long, device=dev)
+    noise = torch.full((N,), 0.05, device=dev) + 1e-8
+    b1_errs = [b1_path_check(torch, ck, "nigp", *a) for a in (
+        (Xt, zn, Xt, zn, *one), (Xt, zn, Xt, zn, *one, noise),
+        (gt, zm, Xt, zn, *one),
+        (gt[:1024].contiguous(), zm[:1024], Xt, zn, *one))]
+    torch.cuda.empty_cache()
+    emit("nigp", part="eval_phases", N=N, nvidia_smi=nvidia_smi(),
+         eval_ms=phases, gradient_checks=grad_errs, b1_max_abs_err=b1_errs)
+
+    probe = PathProbe(torch, ck, cov, (nigp,))
+    ck.reset_launches()
+    info = {}
+    try:
+        for name, make, fit, b1_per_eval in (
+                ("fit_native", lambda: nigp.NIGP(n_restarts=2),
+                 lambda m: m.fit_native(Xt, yt, n_restarts=2, maxiter=3), 2),
+                ("fit", lambda: nigp.NIGP(n_restarts=1, iters=1),
+                 lambda m: m.fit(Xt, yt, maxiter_opt=3), 1)):
+            probe.fits.clear()
+            b1, bw = ck.LAUNCHES["ar1_cov_fused"], probe.backwards
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = fit(make())
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            label = f"nigp {name}"
+            fit_checks(label, probe.fits, b1_per_eval)
+            evals = sum(r["evals"] for r in probe.fits)
+            backwards = probe.backwards - bw
+            check(f"{label} backward through B1's Function",
+                  backwards == b1_per_eval * evals and evals > 0,
+                  f"{backwards} closed-form backwards for {evals} "
+                  f"evaluations ({b1_per_eval} per evaluation)")
+            p = m.get_params()
+            check(f"{label} params", bool(np.isfinite(p).all())
+                  and bool((p >= 1e-6 * (1 - 1e-5)).all())
+                  and bool((p <= 1e6 * (1 + 1e-5)).all())
+                  and m.X_train_.is_cuda
+                  and m.X_train_.dtype == torch.float32,
+                  f"finite and inside [1e-6, 1e6]: {p.round(6).tolist()}; "
+                  f"data on {m.X_train_.device} in {m.X_train_.dtype}")
+            eval_s = sum(r["seconds"] for r in probe.fits)
+            info[name] = dict(
+                seconds=seconds, evaluations=evals,
+                s_per_evaluation=eval_s / max(evals, 1),
+                optimiser_seconds=eval_s, peak_mem_gb=peak,
+                b1_launches=ck.LAUNCHES["ar1_cov_fused"] - b1,
+                lanes=[r["lanes"] for r in probe.fits],
+                nlml_start=[r["f0"] for r in probe.fits],
+                iterations=[r["iterations"] for r in probe.fits],
+                params=p.round(6).tolist())
+            if name == "fit_native":
+                model = m
+            del m
+    finally:
+        probe.restore()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mu_b, var_b = model.predict_blocked(gt)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mu, var = model.predict(gt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    finite = all(bool(np.isfinite(a).all()) for a in (mu, var, mu_b, var_b))
+    check("nigp predict", finite and bool((var >= 1e-12).all())
+          and bool((var_b >= 1e-12).all()) and mu.shape == (M,),
+          f"{M} grid points: finite {finite}, min var {var.min():.3e} and "
+          f"{var_b.min():.3e} (floor 1e-12)")
+    e_mu = float(np.abs(mu - mu_b).max() / np.abs(mu).max())
+    e_var = float(np.abs(var - var_b).max() / model.sigma_f_)
+    check("nigp predict = predict_blocked", e_mu <= 1e-3 and e_var <= 2e-2,
+          f"max |mean diff| / max |mean| {e_mu:.3e} (<= 1e-3), max |var "
+          f"diff| / sigma_f {e_var:.3e} (<= 2e-2: float32 kss - |V|^2 "
+          "through a triangular solve against a product with Linv)")
+    launches = dict(ck.LAUNCHES)
+    check("nigp launches", launches["ar1_cov_fused"] > 0, f"{launches}")
+    emit("nigp", part="fits", N=N, M=M, nvidia_smi=nvidia_smi(), fits=info,
+         predict_blocked_s=t1 - t0, predict_s=t2 - t1, predict_mean_err=e_mu,
+         predict_var_err=e_var, launches=launches)
+    del model, mu, var, mu_b, var_b
+    torch.cuda.empty_cache()
+    idle = device_idle_share(torch, lambda: nigp.NIGP(
+        n_restarts=1, iters=1).fit(Xt, yt, maxiter_opt=2))
+    emit("nigp_idle", window="NIGP.fit, 1 outer iteration x 1 restart, "
+         f"maxiter_opt=2, N={N}", nvidia_smi=nvidia_smi(), **idle)
+    return launches
+
+
+def recursive_phase(torch, ck, cov, dev, problem) -> dict:
+    """Phase 9: the recursive MFGP on the problem's three fidelity lists
+    (built from numpy arrays, which go to the card), float32; returns its
+    launches, counted from 0."""
+    from mfgp_tpu_torch.models import gp
+    from mfgp_tpu_torch.models.mfgp_recursive import RecursiveMFGP
+
+    Xt, ft, yt, gt, _, _ = problem
+    Xn, fn, yn = (a.cpu().numpy() for a in (Xt, ft, yt))
+    X_list = [Xn[fn == f] for f in range(3)]
+    y_list = [yn[fn == f] for f in range(3)]
+    probe = PathProbe(torch, ck, cov, (gp,))
+    ck.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        m = RecursiveMFGP.from_fidelity_lists(X_list, y_list,
+                                              dtype=torch.float32)
+        m.optimize(n_restarts=2, maxiter=3)
+    finally:
+        probe.restore()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mu, var = m.predict(gt.cpu().numpy())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(ck.LAUNCHES)
+    fit_checks("recursive", probe.fits)
+    # B1 at a level's launch shapes (F=1, the level's fitted parameters)
+    lvl = m.levels[0]
+    n0 = lvl.X.shape[0]
+    z0 = torch.zeros(n0, dtype=torch.long, device=dev)
+    zm = torch.zeros(gt.shape[0], dtype=torch.long, device=dev)
+    one = (lvl.params.variance.reshape(1),
+           lvl.params.lengthscales.reshape(1, -1), lvl.X.new_zeros(0))
+    noise = lvl.params.noise.expand(n0) + lvl.jitter
+    b1_errs = [b1_path_check(torch, ck, "recursive", lvl.X, z0, lvl.X, z0,
+                             *one, noise.contiguous()),
+               b1_path_check(torch, ck, "recursive", gt, zm, lvl.X, z0, *one)]
+    finite = bool(np.isfinite(mu).all()) and bool(np.isfinite(var).all())
+    on_card = all(lvl.X.is_cuda and lvl.X.dtype == torch.float32
+                  for lvl in m.levels)
+    check("recursive predict", finite and bool((var >= 0).all())
+          and on_card and len(probe.fits) == 3,
+          f"{len(probe.fits)} level fits of {[len(x) for x in X_list]} "
+          f"points on the card: {on_card}; grid posterior finite {finite}, "
+          f"min var {var.min():.3e} (>= 0)")
+    check("recursive launches", launches["ar1_cov_fused"] > 0,
+          f"B1 at F=1: {launches}")
+    emit("recursive", nvidia_smi=nvidia_smi(), fit_s=t1 - t0,
+         predict_s=t2 - t1, levels=[len(x) for x in X_list],
+         evaluations=[r["evals"] for r in probe.fits],
+         lanes=[r["lanes"] for r in probe.fits],
+         nlml_start=[r["f0"] for r in probe.fits], launches=launches,
+         b1_max_abs_err=b1_errs, param_array=m.param_array.round(6).tolist())
+    return launches
+
+
+NEW_PHASES = ("study", "study_f64", "nigp", "recursive")
+
+
+def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
+    """Phases 7 to 9 in turn; returns each path's launches by phase."""
+    launches = {}
+    st = None
+    try:
+        if "study" in only or "study_f64" in only:
+            st = study_phase(torch, ck, cov, dev)
+            launches["study"] = st["launches"]
+        if "study_f64" in only:
+            study_f64_phase(torch, ck, cov, dev, st)
+    finally:
+        if st is not None:
+            shutil.rmtree(st["out_dir"], ignore_errors=True)
+    torch.cuda.empty_cache()
+    if "nigp" in only:
+        launches["nigp"] = nigp_phase(torch, ck, cov, dev, problem)
+    if "recursive" in only:
+        launches["recursive"] = recursive_phase(torch, ck, cov, dev, problem)
+    return launches
+
+
+def only_phases(names) -> int:
+    """``--only``: the build and the named phases of 7 to 9; no result
+    line."""
+    import torch
+
+    unknown = [n for n in names if n not in NEW_PHASES]
+    if unknown or not torch.cuda.is_available():
+        print(f"chip_smoke: --only takes {NEW_PHASES} and needs a CUDA "
+              f"device (unknown: {unknown})", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from mfgp_tpu_torch.models import mfgp as mf
+    from mfgp_tpu_torch.ops import build
+    from mfgp_tpu_torch.ops import covariance as cov
+    from mfgp_tpu_torch.ops import cuda_kernels as ck
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(nvidia_smi(), flush=True)
+    build.build()
+    build.load_library()
+    problem = (make_problem(torch, mf, dev)
+               if {"nigp", "recursive"} & set(names) else None)
+    emit("only", launches=study_path_phases(torch, ck, cov, dev, problem,
+                                            names))
+    for f in FAILURES:
+        print(f"  FAILED {f}", file=sys.stderr)
+    return 1 if FAILURES else 0
+
+
 def main(argv) -> int:
     if argv[:1] == ["--b1-times"] and len(argv) == 2:
         return b1_times_only(argv[1])
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        return only_phases(argv[1].split(","))
     if argv:
-        print("usage: chip_smoke.py [--b1-times ROOT]", file=sys.stderr)
+        print("usage: chip_smoke.py [--b1-times ROOT | --only PHASE,...]",
+              file=sys.stderr)
         return 2
     import torch
 
@@ -1141,8 +2004,11 @@ def main(argv) -> int:
                               states[kern]) for kern in BASES}
     del states
     fit_launches = fit_phase(torch, ck, mf, gp, la, cov, dev, problem)
+    torch.cuda.empty_cache()
+    path_launches = study_path_phases(torch, ck, cov, dev, problem)
     if "jax" in sys.modules:
         FAILURES.append("jax was imported")
+    errs["ar1_cov_fused"] = max(errs["ar1_cov_fused"], *B1_PATH_ERRS)
 
     # bounds at the unit's shapes (rbf): B1 from its Gram's bytes and flop
     # (b1_launches); B2's N^3/3 and B3's N^2 M float32-equivalent flop at
@@ -1153,14 +2019,20 @@ def main(argv) -> int:
               "syrk_grad_fused": (N ** 3 / 3 / TF32X3_FLOPS * 1e3,
                                   "operations"),
               "posterior_fused": (N * N * M / TF32X3_FLOPS * 1e3,
-                                  "operations")}
+                                  "operations"),
+              "tf32_split": (times["rbf"]["tf32_split"]["bound_ms"],
+                             times["rbf"]["tf32_split"]["bound_by"])}
     print(nvidia_smi(), flush=True)
-    # no single PyTorch call computes any of the three functions, so no
-    # library time (library_ms null)
+    # no single PyTorch call computes any of these functions, so no library
+    # time (library_ms null); "launches" is the unit's count, the other
+    # counts are those of each later path, each from 0
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name],
-         "fit_launches": fit_launches[name], "max_abs_err": errs[name],
+         "fit_launches": fit_launches[name],
+         **{f"{phase}_launches": n[name]
+            for phase, n in path_launches.items()},
+         "max_abs_err": errs[name],
          "ms": times["rbf"][name]["ms"],
          "plain_ms": times["rbf"][name]["plain_ms"],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

@@ -14,6 +14,21 @@ ops.optimize      scipy L-BFGS-B and the restart-batched L-BFGS
 models.mfgp       the AR1 MFGP: NLML (autodiff and analytic gradient),
                   conditioning, grid posteriors, fits, the ``MFGP`` class
 models.gp         the single-fidelity GP and its ``GP`` class
+models.nigp       the input-noise GP: alternating and native fits, posteriors
+models.mfgp_recursive  the recursive (per-level residual) multi-fidelity GP
+fields.wrbf       the WRBF field, the random-field draw, FieldSettings files
+estimation.kalman the Kalman steps and the batched trajectory filter
+utils.configs     ``KFConfig`` / ``SimConfig``; utils.device: the device rule
+data.io           the reference's CSV / text artifacts (numpy only)
+data.aggregate    ``MSE_*.txt`` files to ``results.csv`` and mean metrics
+data.pipeline     trajectory -> KF estimates -> field measurements -> bins
+data.trainers     fit {MFGP, SFGP, SFGP-TP, NIGP}, RMSE / WMSE, artifacts
+data.study        the model-comparison study and the training-size study
+cli               ``python -m mfgp_tpu_torch.cli study ...`` and six more
+
+Everything that builds tensors takes ``device``: the card by default, an
+error where there is no CUDA device, the CPU only when asked
+(``device="cpu"``, ``--cpu``).
 
 Importing the package loads nothing heavy: submodules import ``torch`` on
 first use, and CUDA code is built only when a kernel is first launched on a

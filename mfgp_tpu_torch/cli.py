@@ -1,0 +1,237 @@
+"""Command-line entry points of the port (counterpart of
+``mfgp_tpu/cli.py``, the commands of the model-comparison study):
+
+  python -m mfgp_tpu_torch.cli sfgp     <GPData.csv> [--field-settings F]
+  python -m mfgp_tpu_torch.cli nigp     <GPData.csv> [--iters N]
+  python -m mfgp_tpu_torch.cli mfgp     <GPData.csv> [--field-settings F]
+  python -m mfgp_tpu_torch.cli pipeline <traj.csv> --out D [--seed S] [--vmn V]
+  python -m mfgp_tpu_torch.cli trainers --data-dir D --field-dir F --out O
+  python -m mfgp_tpu_torch.cli aggregate 'GPResults/MSE_*.txt' --out results.csv
+  python -m mfgp_tpu_torch.cli study    --out D [--fit-mode device] ...
+
+Every command runs on the card and raises where there is no CUDA device,
+unless ``--cpu`` (before the command) asks for the CPU. Each prints one
+JSON document with the JAX package's keys on standard output; the trainers
+and the study also report, on standard error, how many WMSE metrics were
+redone in float64 (on the same device). The other commands of the JAX package
+(explore, mission, campaign, serve, plot, infogain-test) are not here yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+
+def _device(args):
+    """The card, unless ``--cpu`` was given; raises without a CUDA device."""
+    from mfgp_tpu_torch.utils.device import resolve
+
+    return resolve("cpu" if args.cpu else "cuda")
+
+
+def _fit_dtype(fit_mode: str):
+    """float32 for the device modes, float64 for scipy's."""
+    return np.float32 if fit_mode.startswith("device") else np.float64
+
+
+def _grid_rmse(mu, field_settings, tp, device) -> float:
+    from mfgp_tpu_torch.fields.wrbf import parse_field_settings
+
+    f = parse_field_settings(field_settings, device=device)
+    err = mu.detach().cpu().numpy() - f.numpy(tp)
+    return float(np.sqrt(np.mean(err ** 2)))
+
+
+def cmd_sfgp(args):
+    """BASELINE config 1: SFGP fit + posterior grid on one dataset."""
+    device = _device(args)
+    from mfgp_tpu_torch.data.io import load_gp_dataset
+    from mfgp_tpu_torch.models.gp import GP
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    ds = load_gp_dataset(args.dataset)
+    gp = GP(ds.X_est, ds.y, kernel=args.kernel, jitter=1e-6, device=device)
+    gp.optimize()
+    tp = SimConfig().test_points()
+    mu, var = gp.predict(tp)
+    out = {"model": "sfgp", "n": ds.n,
+           "nlml": -float(gp.log_likelihood()),
+           "param_array": gp.param_array.tolist()}
+    if args.field_settings:
+        out["rmse"] = _grid_rmse(mu, args.field_settings, tp, device)
+    print(json.dumps(out))
+
+
+def cmd_nigp(args):
+    """BASELINE config 2: NIGP with KF localization input noise."""
+    device = _device(args)
+    from mfgp_tpu_torch.data.io import load_gp_dataset
+    from mfgp_tpu_torch.models.nigp import NIGP
+
+    ds = load_gp_dataset(args.dataset)
+    m = NIGP(n_restarts=2, iters=args.iters, device=device)
+    m.fit(ds.X_est, ds.y)
+    mu, var = m.predict(ds.X_est[:10])
+    print(json.dumps({"model": "nigp", "n": ds.n,
+                      "params": m.get_params().tolist(),
+                      "mu_head": np.asarray(mu)[:3].tolist()}))
+
+
+def cmd_mfgp(args):
+    """BASELINE config 3: AR1 MFGP on fidelity-binned data."""
+    device = _device(args)
+    from mfgp_tpu_torch.data.io import load_gp_dataset
+    from mfgp_tpu_torch.models.mfgp import MFGP
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    ds = load_gp_dataset(args.dataset)
+    Xs, ys = ds.fidelity_lists()
+    m = MFGP.from_fidelity_lists(Xs, ys, device=device, kernel=args.kernel,
+                                 jitter=1e-6)
+    m.optimize(fix_rhos=True)
+    tp = SimConfig().test_points()
+    mu, var = m.predict(tp)
+    out = {"model": "mfgp", "n": ds.n,
+           "nlml": -float(m.log_likelihood()),
+           "param_array": m.param_array.tolist()}
+    if args.field_settings:
+        out["rmse"] = _grid_rmse(mu, args.field_settings, tp, device)
+    print(json.dumps(out))
+
+
+def cmd_pipeline(args):
+    """Stages 1-3: trajectory -> estimates -> measurements -> GP dataset."""
+    device = _device(args)
+    from mfgp_tpu_torch.data.io import load_table
+    from mfgp_tpu_torch.data.pipeline import run_pipeline
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    cfg = SimConfig(seed=args.seed, vmn=args.vmn)
+    traj = load_table(args.trajectory)
+    est, meas, gpd, _ = run_pipeline(traj, cfg, out_dir=args.out,
+                                     device=device)
+    print(json.dumps({"estimates": est.data.shape[0],
+                      "gp_rows": gpd.data.shape[0], "out": args.out}))
+
+
+def _report_f64(count: int) -> None:
+    print(f"wmse_f64_count: {count} WMSE metric(s) redone in float64",
+          file=sys.stderr, flush=True)
+
+
+def cmd_trainers(args):
+    """GPTrainers sweep over a GPDataSets directory."""
+    device = _device(args)
+    from mfgp_tpu_torch.data.trainers import F64_KEY, process_directory
+
+    res = process_directory(args.data_dir, args.field_dir, args.out,
+                            kernel=args.kernel, resume=not args.no_resume,
+                            fit_mode=args.fit_mode, verbose=False,
+                            dtype=_fit_dtype(args.fit_mode), device=device)
+    _report_f64(sum(m.pop(F64_KEY) for m in res.values()))
+    print(json.dumps(res, indent=1))
+
+
+def cmd_aggregate(args):
+    from mfgp_tpu_torch.data.aggregate import collect_results, summary
+
+    rows = collect_results(args.pattern, args.out)
+    print(json.dumps(summary(rows), indent=1))
+
+
+def cmd_study(args):
+    """Full study sweep: trajectories -> pipeline -> 4-model training ->
+    aggregation (the reference's entire manual workflow as one command)."""
+    device = _device(args)
+    from mfgp_tpu_torch.data.study import run_study
+    from mfgp_tpu_torch.data.trainers import F64_KEY
+
+    timings = {}
+    rep = run_study(
+        args.out,
+        traj_seeds=tuple(range(args.trajectories)),
+        vmn_levels=tuple(args.vmn),
+        field_seeds=tuple(args.field_seeds),
+        closed_loop=args.closed_loop,
+        duration=args.duration,
+        fit_mode=args.fit_mode,
+        dtype=_fit_dtype(args.fit_mode), device=device, timings=timings)
+    _report_f64(timings[F64_KEY])
+    print(json.dumps(rep, indent=1))
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(
+        prog="mfgp_tpu_torch",
+        description="MFGP exploration study on one NVIDIA GPU (PyTorch/CUDA)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (default: the CUDA device; without "
+                         "one the commands raise)")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("sfgp"); p.set_defaults(fn=cmd_sfgp)
+    p.add_argument("dataset"); p.add_argument("--field-settings")
+    p.add_argument("--kernel", default="rbf")
+
+    p = sub.add_parser("nigp"); p.set_defaults(fn=cmd_nigp)
+    p.add_argument("dataset"); p.add_argument("--iters", type=int, default=10)
+
+    p = sub.add_parser("mfgp"); p.set_defaults(fn=cmd_mfgp)
+    p.add_argument("dataset"); p.add_argument("--field-settings")
+    p.add_argument("--kernel", default="rbf")
+
+    p = sub.add_parser("pipeline"); p.set_defaults(fn=cmd_pipeline)
+    p.add_argument("trajectory"); p.add_argument("--out", required=True)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--vmn", type=float, default=0.2)
+
+    p = sub.add_parser("trainers"); p.set_defaults(fn=cmd_trainers)
+    p.add_argument("--fit-mode", default="scipy",
+                   choices=["scipy", "device", "device-batched"])
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--field-dir", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--kernel", default="rbf")
+    p.add_argument("--no-resume", action="store_true")
+
+    p = sub.add_parser("aggregate"); p.set_defaults(fn=cmd_aggregate)
+    p.add_argument("pattern"); p.add_argument("--out")
+
+    p = sub.add_parser("study"); p.set_defaults(fn=cmd_study)
+    p.add_argument("--out", required=True)
+    p.add_argument("--trajectories", type=int, default=2)
+    p.add_argument("--vmn", type=float, nargs="+", default=[0.0, 0.1, 0.2])
+    p.add_argument("--field-seeds", type=int, nargs="+", default=[0])
+    p.add_argument("--closed-loop", action="store_true",
+                   help="generate trajectories with the closed-loop sim "
+                        "(not ported yet: raises)")
+    p.add_argument("--duration", type=float, default=1200.0)
+    p.add_argument("--fit-mode", default="scipy",
+                   choices=["scipy", "device", "device-batched"],
+                   help="scipy = L-BFGS-B on the autodiff NLML (float64); "
+                        "device = restart-batched fits (float32, through "
+                        "the CUDA kernels on the card); device-batched = "
+                        "the whole matrix at once (not ported yet: raises)")
+    # the JAX package's flags of the device-batched mode: accepted, so a
+    # command line written for it parses here, and read by that mode alone
+    p.add_argument("--fit-chunk", type=int, default=8,
+                   help="device-batched only: datasets per fit launch")
+    p.add_argument("--eval-chunk", type=int, default=8,
+                   help="device-batched only: datasets per eval launch")
+    p.add_argument("--ftol", type=float, default=1e-6,
+                   help="device-batched only: relative-f stagnation stop "
+                        "of the restart-batched L-BFGS lanes")
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

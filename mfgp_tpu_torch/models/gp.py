@@ -39,6 +39,7 @@ from mfgp_tpu_torch.ops import linalg as _la
 from mfgp_tpu_torch.ops.optimize import (autograd_value_and_grad,
                                          batched_lbfgs, penalize_nonfinite,
                                          restart_inits, scipy_lbfgsb)
+from mfgp_tpu_torch.utils.device import CUDA, as_tensor_on, points_like
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -74,7 +75,8 @@ class GPParams(NamedTuple):
 
     @staticmethod
     def default(D: int, dtype=torch.float64, device=None) -> "GPParams":
-        """GPy defaults: variance, lengthscales and noise 1."""
+        """GPy defaults: variance, lengthscales and noise 1. ``device=None``
+        builds on the CPU; a caller passes its data's device."""
         z = dict(dtype=dtype, device=device)
         return GPParams(torch.zeros((), **z), torch.zeros(D, **z),
                         torch.zeros((), **z))
@@ -277,7 +279,7 @@ class GP:
     kernel: str = "rbf"
     params: GPParams | None = None
     jitter: float = 0.0
-    device: torch.device | str = _mf.CUDA
+    device: torch.device | str = CUDA
 
     def __post_init__(self):
         self.set_XY(self.X, self.y)
@@ -289,7 +291,8 @@ class GP:
         """Replace the training set (reference ``gp.set_XY``,
         GPTrainers.py:83); inputs that are not tensors go to the model's
         device."""
-        self.X = torch.atleast_2d(_mf.as_tensor_on(X, self.device))
+        self.X = torch.atleast_2d(
+            as_tensor_on(X, self.device)).contiguous()
         self.y = torch.as_tensor(y, dtype=self.X.dtype,
                                  device=self.X.device).reshape(-1)
         self.device = self.X.device
@@ -349,8 +352,7 @@ class GP:
     def extend_data(self, X_new, y_new):
         """Online conditioning: append observations with a bordered
         Cholesky block, O(N^2 P), without refactorizing."""
-        X_new = torch.atleast_2d(torch.as_tensor(X_new, dtype=self.X.dtype,
-                                                 device=self.X.device))
+        X_new = points_like(X_new, self.X)
         y_new = torch.as_tensor(y_new, dtype=self.X.dtype,
                                 device=self.X.device).reshape(-1)
         state = self.state
@@ -370,8 +372,7 @@ class GP:
                 block_size: int | None = None):
         """Posterior at Xs; marginal variances over large grids
         (M N > 2^25) stream in row blocks."""
-        Xs = torch.atleast_2d(torch.as_tensor(Xs, dtype=self.X.dtype,
-                                              device=self.X.device))
+        Xs = points_like(Xs, self.X)
         if not full_cov and (block_size is not None
                              or Xs.shape[0] * self.X.shape[0] > 1 << 25):
             return predict_blocked(self.params, self.state, Xs,

@@ -41,6 +41,7 @@ from mfgp_tpu_torch.ops import linalg as _la
 from mfgp_tpu_torch.ops.optimize import (autograd_value_and_grad,
                                          batched_lbfgs, penalize_nonfinite,
                                          restart_inits, scipy_lbfgsb)
+from mfgp_tpu_torch.utils.device import CUDA, as_tensor_on, points_like
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -83,7 +84,9 @@ class MFGPParams(NamedTuple):
     @staticmethod
     def default(n_fidelities: int, D: int, dtype=torch.float64,
                 device=None) -> "MFGPParams":
-        """GPy/emukit defaults: variances, lengthscales, rhos and noises 1."""
+        """GPy/emukit defaults: variances, lengthscales, rhos and noises 1.
+        ``device=None`` builds on the CPU; a caller passes its data's
+        device."""
         z = dict(dtype=dtype, device=device)
         return MFGPParams(torch.zeros(n_fidelities, **z),
                           torch.zeros((n_fidelities, D), **z),
@@ -144,22 +147,6 @@ def augment(X: torch.Tensor, fid) -> torch.Tensor:
     f = torch.broadcast_to(torch.as_tensor(fid, dtype=X.dtype,
                                            device=X.device), (X.shape[0],))
     return torch.cat([X, f[:, None]], dim=1)
-
-
-CUDA = torch.device("cuda")
-
-
-def as_tensor_on(a, device) -> torch.Tensor:
-    """``a`` as a tensor: a tensor keeps its own device, anything else
-    (numpy arrays, lists) goes to ``device``. Asking for the card where
-    torch has no CUDA device raises; nothing quietly lands on the CPU."""
-    if isinstance(a, torch.Tensor):
-        return a
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the model classes build on the "
-                           "card unless given device='cpu'")
-    return torch.as_tensor(a, device=device)
 
 
 def stack_fidelity_lists(X_list: Sequence, y_list: Sequence | None = None,
@@ -411,9 +398,9 @@ def _mf_fit_restarts(inits, X, fid, y, fixed_rhos, lower, upper,
 
 def _as_data(X, fid, y, device):
     """(X, fid, y) as tensors on X's device (``device`` when X is not a
-    tensor): X at least 2-D, integer labels, y flat in X's dtype (an
-    (N, 1) column is accepted)."""
-    X = torch.atleast_2d(as_tensor_on(X, device))
+    tensor): X at least 2-D and contiguous, integer labels, y flat in X's
+    dtype (an (N, 1) column is accepted)."""
+    X = torch.atleast_2d(as_tensor_on(X, device)).contiguous()
     fid = torch.as_tensor(fid, device=X.device).long().reshape(-1)
     y = torch.as_tensor(y, dtype=X.dtype, device=X.device).reshape(-1)
     return X, fid, y
@@ -553,7 +540,7 @@ class MFGP:
         a bordered Cholesky block, O(N^2 P), instead of the reference's
         ``set_data`` and refit per replan."""
         X_new, fid_new, y_new = _as_data(
-            torch.as_tensor(X_new, dtype=self.X.dtype, device=self.X.device),
+            points_like(X_new, self.X),
             fid_new, y_new, self.X.device)
         state = self.state
         p = self.params
@@ -575,8 +562,7 @@ class MFGP:
         (M, D) inputs, or emukit-style augmented (M, D+1) inputs with a
         trailing fidelity column when ``fid`` is None. Marginal variances
         over large grids (M N > 2^25) stream in row blocks."""
-        Xs = torch.atleast_2d(torch.as_tensor(Xs, dtype=self.X.dtype,
-                                              device=self.X.device))
+        Xs = points_like(Xs, self.X)
         M = Xs.shape[0]
         if fid is None:
             if Xs.shape[1] == self.X.shape[1] + 1:

@@ -62,6 +62,18 @@ def matern32(X1, X2, variance, lengthscales) -> torch.Tensor:
 KERNELS = {"rbf": rbf, "matern32": matern32}
 
 
+def rbf_dx1(X1, X2, variance, lengthscales) -> torch.Tensor:
+    """Gradient of the RBF kernel in its first input: (N, M, D) with
+    ``out[i,j,d] = -K[i,j] (x1_i[d] - x2_j[d]) / l_d^2`` (the derivative
+    behind the NIGP's posterior-mean gradients, reference/NIGP.py:49-64;
+    ``models.nigp.posterior_mean_grads`` contracts it without the (N, M, D)
+    tensor)."""
+    ls = _ard(lengthscales, X1)
+    K = rbf(X1, X2, variance, ls)
+    diffs = X1[:, None, :] - X2[None, :, :]
+    return -K[:, :, None] * diffs / ls ** 2
+
+
 def ar1_fidelity_weights(rhos: torch.Tensor,
                          n_fidelities: int) -> torch.Tensor:
     """AR1 weights ``W[m, f] = prod_{l=m+1..f} rho_l`` (0 for f < m).

@@ -188,3 +188,50 @@ def chol_append_block(L: torch.Tensor, B: torch.Tensor,
     out[n:, :n] = Lb.T
     out[n:, n:] = chol(C - Lb.T @ Lb)
     return out
+
+
+def chol_rank1_update(L: torch.Tensor, x: torch.Tensor,
+                      downdate: bool = False) -> torch.Tensor:
+    """Rank-1 Cholesky update ``chol(L L^T +/- x x^T)`` by a hybrid
+    Givens / hyperbolic-rotation sweep over the rows: O(n^2) work in n
+    sequential steps (the JAX package scans them), no autograd."""
+    n = L.shape[0]
+    sign = -1.0 if downdate else 1.0
+    L = L.detach().clone()
+    x = x.detach().clone()
+    for i in range(n):
+        diag = L[i, i]
+        xi = x[i]
+        r = torch.sqrt(diag * diag + sign * xi * xi)
+        c = r / diag
+        s = xi / diag
+        L[i:, i] = (L[i:, i] + sign * s * x[i:]) / c
+        L[i, i] = r
+        x[i + 1:] = c * x[i + 1:] - s * L[i + 1:, i]
+    return L
+
+
+# ---------------------------------------------------------------------------
+# metrics
+# ---------------------------------------------------------------------------
+def weighted_mse(err: torch.Tensor, Sigma: torch.Tensor,
+                 normalize: bool = True) -> torch.Tensor:
+    """Precision-weighted MSE ``e^T (Sigma^-1 / |Sigma^-1|_F) e / n``
+    (reference/GPTrainers.py:121-137): ``Sigma^-1 e`` is a Cholesky solve
+    and ``|Sigma^-1|_F`` the Frobenius norm of ``A^T A`` with ``A = L^-1``.
+    NaN where Sigma is not positive definite (``chol``'s NaN factor runs
+    through), which the trainers' host fallback relies on."""
+    n = err.shape[0]
+    L = chol(Sigma)
+    quad = torch.dot(err, chol_solve(L, err))
+    if normalize:
+        eye = torch.eye(n, dtype=Sigma.dtype, device=Sigma.device)
+        A = (tri_solve_blocked(L, eye) if n * n > _BLOCK_SOLVE_ELEMS
+             else tri_solve(L, eye))
+        quad = quad / torch.linalg.matrix_norm(A.T @ A)
+    return quad / n
+
+
+def rmse(err: torch.Tensor) -> torch.Tensor:
+    """Root mean squared error (reference/GPTrainers.py:141)."""
+    return torch.sqrt(torch.mean(err ** 2))

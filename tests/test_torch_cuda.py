@@ -426,3 +426,189 @@ def test_gp_unit_through_b2(dev, gen):
     for a, b in zip(g32, g64):
         torch.testing.assert_close(a.double(), b, rtol=2e-3,
                                    atol=2e-3 * float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the study path on the card
+# ---------------------------------------------------------------------------
+def _nigp_problem(gen, N=300):
+    X = gen.uniform(0, 4, (N, 3)).astype(np.float32)
+    y = (np.sin(X).sum(1) + 0.1 * gen.normal(size=N)).astype(np.float32)
+    return X, y
+
+
+def test_nigp_gradients_through_b1(dev, gen):
+    """float32 autodiff gradients of ``nlml`` and ``nlml_native`` on the
+    card (B1 forward, closed-form backward on the summed cotangent of the
+    Gram's three uses) against the float64 plain path: max |err| / max
+    |ref| <= 2e-3."""
+    from mfgp_tpu_torch.models import nigp as tn
+
+    X, y = _nigp_problem(gen)
+    lh = np.log([1.2, 0.9, 1.5, 1.3, 0.2, 0.1, 0.15, 0.05])
+    gf = gen.normal(size=X.shape)
+    for fn in (lambda h, X, y, g: tn.nlml(h, X, y, g),
+               lambda h, X, y, g: tn.nlml_native(h, X, y)):
+        out = {}
+        for dt in (torch.float32, torch.float64):
+            h = torch.tensor(lh, dtype=dt, device=dev, requires_grad=True)
+            args = _t(dev, X, y, gf, dtype=dt)
+            before = ck.LAUNCHES["ar1_cov_fused"]
+            v = fn(h, *args)
+            g, = torch.autograd.grad(v, h)
+            out[dt] = (v.detach().double(), g.double(),
+                       ck.LAUNCHES["ar1_cov_fused"] - before)
+        v32, g32, n32 = out[torch.float32]
+        v64, g64, n64 = out[torch.float64]
+        assert n32 >= 1 and n64 == 0
+        assert abs(float(v32 - v64)) <= 1e-3 * abs(float(v64))
+        assert float((g32 - g64).abs().max() / g64.abs().max()) <= 2e-3
+
+
+def test_nigp_fits_through_b1(dev, gen):
+    """Both NIGP fits on the card in float32: B1 launched, the data on the
+    card, finite parameters inside the bounds, the NLML not above its
+    start, ``predict`` and ``predict_blocked`` agreeing."""
+    from mfgp_tpu_torch.models import nigp as tn
+
+    X, y = _nigp_problem(gen)
+    for fit in (lambda m: m.fit(X, y, maxiter_opt=8),
+                lambda m: m.fit_native(X, y, maxiter=8)):
+        m = tn.NIGP(n_restarts=2, iters=1)
+        before = ck.LAUNCHES["ar1_cov_fused"]
+        fit(m)
+        assert ck.LAUNCHES["ar1_cov_fused"] > before
+        assert m.X_train_.is_cuda and m.X_train_.dtype == torch.float32
+        p = m.get_params()
+        assert np.isfinite(p).all() and (p >= 1e-6 * 0.999).all() and (
+            p <= 1e6 * 1.001).all()
+        Xs = gen.uniform(0, 4, (257, 3)).astype(np.float32)
+        mu, var = m.predict(Xs)
+        mu_b, var_b = m.predict_blocked(Xs, block_size=100)
+        assert np.isfinite(mu).all() and (var >= 1e-12).all()
+        np.testing.assert_allclose(mu_b, mu, rtol=1e-3, atol=1e-3)
+        np.testing.assert_allclose(var_b, var, rtol=1e-2, atol=1e-3)
+        mu_c, cov = m.predict(Xs, return_cov=True, as_numpy=False)
+        assert cov.is_cuda and cov.shape == (257, 257)
+
+
+def test_median_heuristic_on_the_card(dev, gen):
+    from mfgp_tpu_torch.models import nigp as tn
+
+    X = gen.uniform(0, 5, (400, 3))
+    pair = np.sqrt(np.maximum(0, np.sum(
+        (X[:, None, :] - X[None, :, :]) ** 2, axis=2)))
+    ref = np.median(pair[pair > 0])
+    got = tn.median_pairwise_distance(torch.as_tensor(X, device=dev), 5000)
+    assert abs(got - ref) <= 1e-12 * ref
+
+
+def test_filter_on_the_card_matches_cpu(dev, gen):
+    """The filter on the card, as CUDA graphs (chunks that do and do not
+    divide the steps) and eagerly, against the CPU loop on the same noise:
+    1e-9 (float64 on both)."""
+    from mfgp_tpu_torch.estimation import kalman as tkf
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    cfg = SimConfig(vmn=0.1)
+    T = 501
+    t = np.arange(T) * 0.1
+    pos = np.stack([np.column_stack([
+        5 + 3 * np.sin(t / 4 + k), 10 + 6 * np.cos(t / 5 + k),
+        np.clip(1.5 * np.sin(t / 3 + k), 0.0, None)]) for k in range(3)])
+    tb = np.broadcast_to(t, (3, T)).copy()
+    noise = gen.normal(size=(3, T - 1, 6))
+    ref = tkf.filter_trajectory(cfg.kf_model(device="cpu"), tb, pos,
+                                noise=noise)
+    model = cfg.kf_model()
+    assert model.P0.is_cuda
+    for steps in (None, 64, 500, 0):
+        got = tkf.filter_trajectory(model, tb, pos, noise=noise,
+                                    graph_steps=steps)
+        for k in ref:
+            assert got[k].is_cuda and got[k].shape == ref[k].shape
+            np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(),
+                                       rtol=1e-9, atol=1e-9)
+    one = tkf.filter_trajectory(model, t, pos[1], noise=noise[1])
+    np.testing.assert_allclose(one["xh"].cpu().numpy(), ref["xh"][1].numpy(),
+                               rtol=1e-9, atol=1e-9)
+
+
+def test_process_dataset_float32_device_mode(dev, tmp_path, monkeypatch):
+    """One dataset through the pipeline and ``process_dataset`` in the
+    float32 device mode on the card (the restart fits cut to 2 lanes x 8
+    iterations): B1 launched in the fits and in the evaluation, finite
+    RMSEs, finite WMSEs after the counted float64 repairs, the artifacts
+    written; beside the float64 scipy mode, which launches no kernel."""
+    from mfgp_tpu_torch.data import pipeline, study, trainers
+    from mfgp_tpu_torch.data.io import parse_mse
+    from mfgp_tpu_torch.fields.wrbf import default_sim_field
+    from mfgp_tpu_torch.models import nigp as tn
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    for cls, name, kw in ((tm.MFGP, "optimize_restarts",
+                           dict(n_restarts=2, maxiter=8)),
+                          (tg.GP, "optimize_restarts",
+                           dict(n_restarts=2, maxiter=8)),
+                          (tn.NIGP, "fit_native", dict(maxiter=8))):
+        orig = getattr(cls, name)
+        monkeypatch.setattr(cls, name, lambda self, *a, _o=orig, _kw=kw,
+                            **k: _o(self, *a, **{**k, **_kw}))
+    cfg = SimConfig(seed=0, vmn=0.1)
+    traj = study.scripted_trajectory(0, cfg, duration=400.0)
+    field = default_sim_field(cfg.WS, cfg.max_depth)
+    pipeline.run_pipeline(traj, cfg, out_dir=str(tmp_path),
+                          traj_name="T0_0.1", field=field)
+    data = str(tmp_path / "GPDataSets" / "GPData_0.2_fieldMeas_0_T0_0.1.csv")
+    settings = str(tmp_path / "FieldData" / "FieldSettings0.txt")
+    ck.reset_launches()
+    models, metrics = trainers.process_dataset(
+        data, settings, str(tmp_path / "f32"), cfg=cfg, fit_mode="device",
+        dtype=np.float32)
+    assert ck.LAUNCHES["ar1_cov_fused"] > 12
+    assert models.mf.X.is_cuda and models.nigp.X_train_.is_cuda
+    assert models.mf.X.dtype == torch.float32
+    assert 0 <= metrics[trainers.F64_KEY] <= 4
+    for k, v in metrics.items():
+        assert np.isfinite(v), k
+    parsed = parse_mse(tmp_path / "f32" / "MSE_0.2_fieldMeas_0_T0_0.1.txt")
+    assert len(parsed) == 8 and trainers.F64_KEY not in parsed
+    ck.reset_launches()
+    _, m64 = trainers.process_dataset(data, settings, None, cfg=cfg,
+                                      fit_mode="scipy", dtype=np.float64,
+                                      optimize=False)
+    assert ck.LAUNCHES["ar1_cov_fused"] == 0
+    assert np.isfinite(m64["RMSE mf"])
+
+
+def test_wmse_f64_repairs_on_the_card(dev, gen):
+    """An indefinite float32 covariance on the card: ``weighted_mse`` is
+    NaN, ``wmse_f64`` repairs it there, 1e-9 from the host's
+    ``wmse_host64``."""
+    from mfgp_tpu_torch.data import trainers
+    from mfgp_tpu_torch.ops.linalg import weighted_mse
+
+    M = 300
+    Q, _ = np.linalg.qr(gen.normal(size=(M, M)))
+    bad = ((Q * np.r_[np.full(M - 1, 1.0), -1e-3]) @ Q.T).astype(np.float32)
+    err = gen.normal(size=M).astype(np.float32)
+    e, S = torch.as_tensor(err, device=dev), torch.as_tensor(bad, device=dev)
+    assert not np.isfinite(float(weighted_mse(e, S)))
+    for normalize in (True, False):
+        got = trainers.wmse_f64(e, S, normalize)
+        ref = trainers.wmse_host64(err, bad, normalize)
+        assert np.isfinite(got) and abs(got - ref) <= 1e-9 * abs(ref)
+
+
+def test_recursive_mfgp_on_the_card(dev, gen):
+    from mfgp_tpu_torch.models.mfgp_recursive import RecursiveMFGP
+
+    Xs = [gen.uniform(0, 4, (n, 3)) for n in (200, 120, 60)]
+    ys = [np.sin(x).sum(1) + 0.2 * i for i, x in enumerate(Xs)]
+    m = RecursiveMFGP.from_fidelity_lists(Xs, ys, dtype=torch.float32)
+    before = ck.LAUNCHES["ar1_cov_fused"]
+    m.optimize(n_restarts=2, maxiter=4)
+    assert ck.LAUNCHES["ar1_cov_fused"] > before
+    assert all(lvl.X.is_cuda for lvl in m.levels)
+    mu, var = m.predict(gen.uniform(0, 4, (50, 3)))
+    assert np.isfinite(mu).all() and (var > 0).all()

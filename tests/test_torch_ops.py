@@ -235,3 +235,64 @@ def test_port_imports_without_jax_or_triton():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# metrics, the rank-1 update and the RBF input derivative: atol = rtol 1e-10
+# ---------------------------------------------------------------------------
+def close10(port, ref):
+    np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref),
+                               rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_weighted_mse(spd, normalize):
+    K, _, e = spd
+    close10(tla.weighted_mse(torch.as_tensor(e), torch.as_tensor(K),
+                             normalize=normalize),
+            jla.weighted_mse(jnp.asarray(e), jnp.asarray(K),
+                             normalize=normalize))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_weighted_mse_indefinite_is_nan(spd, normalize):
+    """An indefinite Sigma gives NaN in both packages (no exception): the
+    trainers' host fallback keys on it."""
+    K, _, e = spd
+    K = K - 2.0 * np.eye(K.shape[0])
+    got = tla.weighted_mse(torch.as_tensor(e), torch.as_tensor(K),
+                           normalize=normalize)
+    ref = jla.weighted_mse(jnp.asarray(e), jnp.asarray(K),
+                           normalize=normalize)
+    assert torch.isnan(got) and np.isnan(float(ref))
+
+
+def test_rmse(rng):
+    e = rng.normal(size=41)
+    close10(tla.rmse(torch.as_tensor(e)), jla.rmse(jnp.asarray(e)))
+
+
+@pytest.mark.parametrize("downdate", [False, True])
+def test_chol_rank1_update(spd, rng, downdate):
+    K, _, _ = spd
+    x = 0.02 * rng.normal(size=K.shape[0])  # K - x x^T stays definite
+    L = np.linalg.cholesky(K)
+    got = tla.chol_rank1_update(torch.as_tensor(L), torch.as_tensor(x),
+                                downdate=downdate)
+    close10(got, jla.chol_rank1_update(jnp.asarray(L), jnp.asarray(x),
+                                       downdate=downdate))
+    sign = -1.0 if downdate else 1.0
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose((got @ got.T).numpy(),
+                               K + sign * np.outer(x, x), atol=1e-10)
+
+
+def test_rbf_dx1(rng):
+    (X1j, X1t), (X2j, X2t), (lj, lt) = both(rng.normal(size=(19, 3)),
+                                            rng.normal(size=(11, 3)),
+                                            rng.uniform(0.5, 2.0, 3))
+    close10(tk.rbf_dx1(X1t, X2t, 1.7, lt), jk.rbf_dx1(X1j, X2j, 1.7, lj))
+    # it is the derivative: autograd of the kernel in its first input
+    X1 = X1t.clone().requires_grad_(True)
+    g, = torch.autograd.grad(tk.rbf(X1, X2t, 1.7, lt)[:, 4].sum(), X1)
+    close10(g, jk.rbf_dx1(X1j, X2j, 1.7, lj)[:, 4, :])
