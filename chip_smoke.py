@@ -43,17 +43,16 @@
 7. Study: the model-comparison study through the port's command line,
    ``mfgp_tpu_torch.cli.main(["study", "--fit-mode", "device", ...])``, at
    the reference's own dataset shape: ``duration=3600`` (36,000 filter
-   steps per trajectory, N of about 720 points per dataset at 0.2 Hz), the
+   steps per trajectory, N of about 705 points per dataset at 0.2 Hz), the
    2,000-point grid with full 2,000 x 2,000 posterior covariances, float32,
-   1 trajectory seed x 2 velocity-noise levels (0.0, 0.2) x 1 field seed.
-   The reference's design is 10 x 3 x 3 = 90 runs of this same shape; 2
-   runs is the only cut, for this script's time (a run takes 1.5 to 2.5
-   minutes of launch-bound fits, at the pace of the host). Held to: every
-   artifact written and parsed, all RMSE finite, every WRMSE finite after
-   the counted float64 repairs (made on the card), each fit's best NLML no
-   higher than at its start, B1 launched in every fit and every evaluation,
-   the models on the card.
-   ``study_f64``: one of those datasets through ``process_dataset`` in
+   one dataset (trajectory seed 0, velocity-noise level 0.2, field seed
+   0): one dataset at a time is launch-bound and takes 1 to 2.5 minutes
+   at the pace of the host, and phase 10 runs the whole design. Held to:
+   every artifact written and parsed, all RMSE finite, every WRMSE finite
+   after the counted float64 repairs (made on the card), each fit's best
+   NLML no higher than at its start, B1 launched in every fit and every
+   evaluation, the models on the card.
+   ``study_f64``: that dataset through ``process_dataset`` in
    float64 with scipy's L-BFGS-B on the card (the plain composition by the
    gate's rule, so B1's count stays 0), the yardstick for the float32 MFGP
    RMSE. Then B1 at the study's launch shapes, held against its plain
@@ -71,6 +70,27 @@
 9. Recursive: ``RecursiveMFGP`` on the same problem's three fidelity lists
    (2 restarts x 3 iterations per level), then the grid posterior; B1 at a
    level's launch shapes against its plain version in float64.
+10. Batched study (run after phase 7's parts, whose dataset it uses):
+   B1's lane axis held bit for bit against single-lane
+   launches (every lane) and its full grid (every symmetric lane), and
+   against its float64 plain version, at L = 1, 3 and 64 lanes and the
+   study's seven launch shapes, and at the lane counts the study gives it
+   (the fits' Grams at 720 lanes, the NIGP's at 180, every shape at the
+   10-lane evaluation chunk), and timed at 720 lanes; one batched SFGP
+   evaluation of 720 lanes phase by phase; then
+   ``cli.main(["study", "--fit-mode", "device-batched", ...])`` over the
+   reference's whole 10 x 3 x 3 = 90-dataset design at the same shape
+   (one sweep of 720 restart lanes per family, the NIGP's 180), with the
+   launch counters from 0. Held to: every artifact written and parsed,
+   every RMSE finite and every WRMSE finite after the counted float64
+   repairs, each dataset's best NLML no higher than its row-0 start, the
+   sweeps on the card in float32, B1 launched once per round (twice per
+   NIGP round) and 13 times per evaluation chunk, not once per lane; and
+   the batched path with ``ftol=0`` on phase 7's dataset within rtol 0.05
+   of phase 7's RMSEs (MFGP, SFGP, SFGP-TP). Prints the wall and stages,
+   rounds and evaluations per lane and family (by velocity-noise level),
+   peak memory, the repairs per family and the idle share over a bounded
+   window.
 
 Every phase prints one JSON line (the fit phase one per part). A failed
 build or launch raises; a failed check is reported and the script exits 1
@@ -79,15 +99,16 @@ after the last phase. The last line, on success only, is
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --only study,study_f64,nigp,recursive
+    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive
 
-runs the build and only the named phases of 7 to 9 (while working on
-them); it prints no result line.
+runs the build and only the named phases of 7 to 10 (while working on
+them; ``study_batched`` runs ``study`` first, whose dataset it is held
+to); it prints no result line.
 
     python3 chip_smoke.py --b1-times ROOT
 
-times only B1 at its main-path launch shapes (with its registers and
-static SASS) and the unit's wall for the port package of the checkout at
+times only B1 at its main-path launch shapes (with its registers, static
+SASS and a checksum of its output bits) and the unit's wall for the port package of the checkout at
 ROOT, so that two commits can be timed in turns on one card. It prints
 no result line.
 """
@@ -524,13 +545,13 @@ def ptxas_report(log_lines, part: str) -> dict:
 
 
 def short_name(mangled: str) -> str:
-    """B1's instantiation as 'base D' (D padded: 3 or 8); other names as
-    they are."""
-    m = re.search(r"ar1_cov_kernelILi(\d+)ELi(\d+)E", mangled)
+    """B1's instantiation as 'base D' (D padded: 3 or 8), with ' lanes'
+    for the lane-axis instantiation; other names as they are."""
+    m = re.search(r"ar1_cov_kernelILi(\d+)ELi(\d+)E(Lb1E)?", mangled)
     if not m:
         return mangled
-    k, d = map(int, m.groups())
-    return f"{BASES[k]} D{d}"
+    k, d = int(m.group(1)), int(m.group(2))
+    return f"{BASES[k]} D{d}" + (" lanes" if m.group(3) else "")
 
 
 def sass_report(lib_path, part: str, keep) -> dict:
@@ -642,8 +663,23 @@ def b1_times_only(root: str) -> int:
     for kern in BASES:
         emit("b1_times", root=root, base=kern,
              times=b1_times(torch, ck, problem, kern, plain=False),
+             bits=b1_bits(torch, ck, problem, kern),
              unit_wall_s=unit_walls(torch, mf, problem, kern, reps=4))
     return 0
+
+
+def b1_bits(torch, ck, problem, kern: str) -> dict:
+    """A checksum of B1's output bits at each main-path launch shape: the
+    sum of every output float's 32-bit pattern as an integer, so that two
+    checkouts timed in turns show whether they compute the same bits."""
+    out = {}
+    for name, fused, *_ in b1_launches(torch, ck, problem, kern):
+        res = fused()
+        planes = res if isinstance(res, tuple) else (res,)
+        out[name] = sum(int(p.contiguous().view(torch.int32).sum(
+            dtype=torch.int64)) for p in planes)
+        del res, planes
+    return out
 
 
 def planes_match(torch, planes, plain_rows, step: int = 2048) -> bool:
@@ -1288,9 +1324,9 @@ def fit_phase(torch, ck, mf, gp, la, cov, dev, problem):
 # ---------------------------------------------------------------------------
 # phases 7-9: the study path
 # ---------------------------------------------------------------------------
-STUDY_ARGS = ["--trajectories", "1", "--vmn", "0.0", "0.2", "--field-seeds",
-              "0", "--duration", "3600"]
-STUDY_RUNS = 2  # trajectories x noise levels x field seeds of STUDY_ARGS
+STUDY_ARGS = ["--trajectories", "1", "--vmn", "0.2", "--field-seeds", "0",
+              "--duration", "3600"]
+STUDY_RUNS = 1  # trajectories x noise levels x field seeds of STUDY_ARGS
 # the study dataset that the float64 yardstick and the profiler window
 # take: trajectory 0 at the higher velocity-noise level
 STUDY_PICK = "0.2_fieldMeas_0_T0_0.2"
@@ -1558,7 +1594,8 @@ def study_phase(torch, ck, cov, dev) -> dict:
          metrics=parsed, summary_overall=summary["overall"])
     pick_n = probe.trains[names.index(f"MSE_{STUDY_PICK}.txt")]["n"]
     return {"launches": launches, "out_dir": out_dir, "n": pick_n,
-            "rmse_mf": parsed[f"MSE_{STUDY_PICK}.txt"]["RMSE mf"]}
+            "rmse_mf": parsed[f"MSE_{STUDY_PICK}.txt"]["RMSE mf"],
+            "metrics": parsed[f"MSE_{STUDY_PICK}.txt"]}
 
 
 def study_f64_phase(torch, ck, cov, dev, st: dict) -> None:
@@ -1885,19 +1922,460 @@ def recursive_phase(torch, ck, cov, dev, problem) -> dict:
     return launches
 
 
-NEW_PHASES = ("study", "study_f64", "nigp", "recursive")
+# ---------------------------------------------------------------------------
+# phase 10: the batched study and B1's lane axis
+# ---------------------------------------------------------------------------
+def lane_problem(torch, dev, L: int, N: int, M: int, F: int, seed: int):
+    """L lanes of B1 inputs at a study shape: each lane its own training
+    points (N), a grid (M) shared by every lane as a broadcast view, labels
+    and hyperparameters, float32 on the card."""
+    rng = np.random.default_rng(seed)
+    D = 3
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    X = t(rng.uniform(0, 10, (L, N, D)))
+    G = t(rng.uniform(0, 10, (M, D))).expand(L, M, D)
+    fid = t(rng.integers(0, F, (L, N)), torch.long)
+    gfid = t(np.full((L, M), F - 1), torch.long)
+    return dict(X=X, G=G, fid=fid, gfid=gfid,
+                v=t(rng.uniform(0.5, 3.0, (L, F))),
+                ls=t(rng.uniform(1.0, 5.0, (L, F, D))),
+                rho=t(rng.uniform(0.8, 1.2, (L, F - 1))),
+                noise=t(rng.uniform(0.1, 0.2, (L, N))))
+
+
+def lane_shapes(p):
+    """The study's seven B1 launch shapes over lanes, as (name, lane-axis
+    arguments): the N x N Gram with noise at F=1 and F=3, the NIGP's N x N
+    Gram without noise (F=1), the M x N cross-covariance and the M x M grid
+    Gram at F=3 (the MFGP) and F=1 (the other three families)."""
+    X, G, fid, gfid = p["X"], p["G"], p["fid"], p["gfid"]
+    v, ls, rho, nz = p["v"], p["ls"], p["rho"], p["noise"]
+    z, zg = fid.new_zeros(fid.shape), gfid.new_zeros(gfid.shape)
+    one = (v[:, 2:], ls[:, 2:], rho[:, :0])
+    N, M = X.shape[1], G.shape[1]
+    return ((f"gram_{N}_F1", (X, z, X, z, *one, nz)),
+            (f"gram_{N}_F3", (X, fid, X, fid, v, ls, rho, nz)),
+            (f"nigp_gram_{N}_F1", (X, z, X, z, *one, None)),
+            (f"cross_{M}x{N}_F3", (G, gfid, X, fid, v, ls, rho, None)),
+            (f"gram_{M}_F3", (G, gfid, G, gfid, v, ls, rho, None)),
+            (f"cross_{M}x{N}_F1", (G, zg, X, z, *one, None)),
+            (f"gram_{M}_F1", (G, zg, G, zg, *one, None)))
+
+
+def lane_check_sets(N: int, M: int):
+    """(lane count, shape names or None for all seven) at which
+    ``b1_lane_checks`` holds B1's lane axis: 1, 3 and 64 lanes at every
+    shape, then the lane counts the batched study's main path
+    (``BATCHED_ARGS``) gives it: every shape at the evaluation chunk, the
+    fits' Grams at fit_chunk x n_restarts lanes and the NIGP's at
+    fit_chunk x nigp_restarts."""
+    fits, evals = BATCHED_CHUNKS
+    restarts, nigp_restarts = BATCHED_RESTARTS
+    return ((1, None), (3, None), (64, None), (evals, None),
+            (fits * restarts, (f"gram_{N}_F1", f"gram_{N}_F3")),
+            (fits * nigp_restarts, (f"nigp_gram_{N}_F1",)))
+
+
+def b1_lane_checks(torch, ck, dev, N: int = 705, M: int = 2000) -> dict:
+    """B1's lane axis at each of ``lane_check_sets``: every lane
+    bit-identical to a single-lane launch on that lane's inputs, every
+    symmetric lane (the same tensors twice) bit-identical to its full grid
+    (distinct tensors of equal values), and every lane within 1e-5 x max(1,
+    largest entry) of the plain version in float64. Launches are counted:
+    one per lane-axis call. Returns the max abs error against float64 per
+    shape and lane count."""
+    worst_abs, worst_rel = {}, {}
+    differ, full_differ, launches_ok = [], [], True
+    for L, names in lane_check_sets(N, M):
+        p = lane_problem(torch, dev, L, N, M, 3, seed=L)
+        for name, (A, fa, B, fb, v, ls, rho, nz) in lane_shapes(p):
+            if names is not None and name not in names:
+                continue
+            n0 = ck.LAUNCHES["ar1_cov_fused"]
+            got = ck.ar1_cov_fused_lanes(A, fa, B, fb, v, ls, rho, nz)
+            launches_ok &= ck.LAUNCHES["ar1_cov_fused"] == n0 + 1
+            if A is B:
+                full = ck.ar1_cov_fused_lanes(A, fa, B.clone(), fb.clone(), v,
+                                              ls, rho, nz)
+                if not torch.equal(got.view(torch.int32),
+                                   full.view(torch.int32)):
+                    full_differ.append((L, name))
+                del full
+            err, top = 0.0, 1.0
+            for l in range(L):
+                a = A[l].contiguous()
+                b = a if A is B else B[l].contiguous()
+                fl = fa[l].contiguous()
+                fbl = fl if A is B else fb[l].contiguous()
+                one = ck.ar1_cov_fused(a, fl, b, fbl, v[l], ls[l], rho[l],
+                                       None if nz is None else nz[l])
+                if not torch.equal(got[l].view(torch.int32),
+                                   one.view(torch.int32)):
+                    differ.append((L, name, l))
+                ref = ck.ar1_cov_fused_plain(
+                    A[l].double(), fa[l], B[l].double(), fb[l],
+                    v[l].double(), ls[l].double(), rho[l].double(),
+                    None if nz is None else nz[l].double())
+                err = max(err, max_err(got[l], ref))
+                top = max(top, float(ref.abs().max()))
+                del one, ref
+            key = f"{name}_L{L}"
+            worst_abs[key], worst_rel[key] = err, err / top
+            del got
+    torch.cuda.synchronize()
+    sets = [(L, "all" if names is None else list(names))
+            for L, names in lane_check_sets(N, M)]
+    bad = {k: e for k, e in worst_rel.items() if e > 1e-5}
+    check("B1 lanes = single-lane launches", not differ,
+          f"(lanes, shapes) {sets} (N={N}, M={M}): every lane bit-identical "
+          f"to a single-lane launch; differing (L, shape, lane): "
+          f"{differ[:8]}")
+    check("B1 lanes symmetric = full grid", not full_differ,
+          f"each symmetric lane bit-identical to its full grid; differing "
+          f"(L, shape): {full_differ}")
+    check("B1 lanes vs plain f64", not bad,
+          f"max abs err / max(1, largest entry) per shape and lane count "
+          f"{worst_rel} (<= 1e-5)")
+    check("B1 lanes one launch per call", launches_ok,
+          "each lane-axis call counts exactly one launch")
+    B1_PATH_ERRS.extend(worst_abs.values())
+    return worst_abs
+
+
+def b1_lane_times(torch, ck, dev, L: int = 720, N: int = 705,
+                  M: int = 2000) -> dict:
+    """B1's lane axis at L lanes (the 90-dataset design's 90 x 8 restart
+    lanes) at the fits' two Gram shapes (N x N + noise, F=1 and F=3), and
+    at the evaluation's grid shapes for one evaluation chunk of lanes:
+    one lane-axis launch on CUDA events beside the same work as L
+    single-lane wrapper calls (the per-dataset path's way) and the plain
+    version's loop, with the bound (bytes: each output written once, the
+    inputs read once) and the share of it reached."""
+    out = {}
+    per = 3 * 3 + 5
+    for lanes, names in ((L, (f"gram_{N}_F1", f"gram_{N}_F3")),
+                         (BATCHED_CHUNKS[1],
+                          (f"cross_{M}x{N}_F1", f"gram_{M}_F1"))):
+        p = lane_problem(torch, dev, lanes, N, M, 3, seed=7)
+        for name, (A, fa, B, fb, v, ls, rho, nz) in lane_shapes(p):
+            if name not in names:
+                continue
+            Ln, n, m = lanes, A.shape[1], B.shape[1]
+            F = v.shape[1]
+            sym = A is B
+            singles = [(A[l].contiguous(), fa[l].contiguous(),
+                        B[l].contiguous(), fb[l].contiguous())
+                       for l in range(Ln)]
+            if sym:
+                singles = [(a, f, a, f) for a, f, _, _ in singles]
+
+            def lanes_call():
+                ck.ar1_cov_fused_lanes(A, fa, B, fb, v, ls, rho, nz)
+
+            def singles_call():
+                for l, (a, f, b, fb_) in enumerate(singles):
+                    ck.ar1_cov_fused(a, f, b, fb_, v[l], ls[l], rho[l],
+                                     None if nz is None else nz[l])
+
+            def plain_call():
+                ck.ar1_cov_fused_lanes_plain(A, fa, B, fb, v, ls, rho, nz)
+
+            s1 = cuda_ms(torch, singles_call, reps=1)
+            k1 = cuda_ms(torch, lanes_call, reps=10)
+            k2 = cuda_ms(torch, lanes_call, reps=10)
+            s2 = cuda_ms(torch, singles_call, reps=1)
+            pl = cuda_ms(torch, plain_call, reps=1)
+            ms = min(k1, k2)
+            nbytes = Ln * (4 * n * m + (n * 3 + n) * 4 + n * 8
+                           + (0 if sym else (m * 3 + m) * 4 + m * 8)
+                           + (4 * n if nz is not None else 0))
+            evals = Ln * (n * (n + 1) / 2 if sym else n * m) * F
+            t_bytes = nbytes / HBM_BPS * 1e3
+            t_ops = evals * per / FP32_FLOPS * 1e3
+            bound = max(t_bytes, t_ops)
+            out[f"{name}_L{Ln}"] = {
+                "lanes": Ln, "ms": ms, "ms_runs": [k1, k2],
+                "single_lane_calls_ms": min(s1, s2),
+                "single_lane_calls_runs": [s1, s2], "plain_ms": pl,
+                "bytes": nbytes, "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "share_of_bound": bound / ms}
+            del singles
+    return out
+
+
+# the batched study: the reference's whole 10 x 3 x 3 design (10 trajectory
+# seeds x velocity-noise levels 0.0, 0.1, 0.2 x 3 field seeds) at its own
+# dataset shape, every dataset's fits in one sweep per model family
+BATCHED_ARGS = ["--trajectories", "10", "--vmn", "0.0", "0.1", "0.2",
+                "--field-seeds", "0", "1", "2", "--duration", "3600",
+                "--fit-chunk", "90", "--eval-chunk", "10"]
+BATCHED_RUNS = 90
+BATCHED_CHUNKS = (90, 10)  # fit_chunk, eval_chunk of BATCHED_ARGS
+# n_restarts, nigp_restarts: process_datasets_batched's defaults, which the
+# command line keeps
+BATCHED_RESTARTS = (8, 2)
+
+
+def batched_eval_phases(torch, ck, dev, L: int = 720, N: int = 705) -> dict:
+    """One lane-batched SFGP evaluation (``mfgp.nlml_value_and_grad_lanes``
+    at F=1) of L lanes at N, phase by phase on CUDA events: B1's lane axis
+    (Gram + noise), the batched Cholesky, alpha and logdet, K^-1 as the
+    port forms it (triangular inverse, product) and by ``cholesky_solve``
+    on the identity, the trace contractions; and the whole call."""
+    from mfgp_tpu_torch.models import gp
+    from mfgp_tpu_torch.ops import linalg as la
+
+    p = lane_problem(torch, dev, L, N, 8, 1, seed=11)
+    X, y = p["X"], torch.sin(p["X"]).sum(-1)
+    v, ls, rho = p["v"], p["ls"], p["rho"]
+    nz = torch.full((L, 1), 0.05, device=dev)
+    fid = torch.zeros((L, N), dtype=torch.long, device=dev)
+    noise = torch.gather(nz, -1, fid) + 1e-6
+    out = {}
+    K = ck.ar1_cov_fused_lanes(X, fid, X, fid, v, ls, rho, noise)
+    out["b1_ms"] = cuda_ms(torch, lambda: ck.ar1_cov_fused_lanes(
+        X, fid, X, fid, v, ls, rho, noise))
+    Lc = la.chol(K)
+    out["chol_ms"] = cuda_ms(torch, lambda: la.chol(K))
+    alpha = la.solve_posterior(Lc, y)
+    out["alpha_logdet_ms"] = cuda_ms(torch, lambda: (
+        la.solve_posterior(Lc, y), la.logdet_from_chol(Lc)))
+    Kinv = la.kinv_from_chol(Lc)
+    out["kinv_ms"] = cuda_ms(torch, lambda: la.kinv_from_chol(Lc))
+    eye = torch.eye(N, device=dev).expand(L, N, N)
+    out["kinv_cholesky_solve_ms"] = cuda_ms(
+        torch, lambda: torch.cholesky_solve(eye, Lc))
+    out["contractions_ms"] = cuda_ms(torch, lambda: ck.grad_from_kinv(
+        Kinv, alpha, X, fid, v, ls, rho, nz))
+    params = gp.GPParams(torch.log(v[:, 0]), torch.log(ls[:, 0]),
+                         torch.log(nz[:, 0]))
+    out["whole_ms"] = cuda_ms(torch, lambda: gp.nlml_value_and_grad_lanes(
+        params, X, y, jitter=1e-6))
+    out["lanes"], out["n"] = L, N
+    return out
+
+
+def lane_sweep_device(torch, tsb):
+    """Wraps ``study_batched.batched_lbfgs`` to record each sweep's lanes,
+    device and dtype; returns (records, restore)."""
+    recs, orig = [], tsb.batched_lbfgs
+
+    def run(fun, x0, *a, **kw):
+        recs.append({"lanes": int(x0.shape[0]), "on_cuda": bool(x0.is_cuda),
+                     "dtype": str(x0.dtype)})
+        return orig(fun, x0, *a, **kw)
+
+    tsb.batched_lbfgs = run
+    return recs, lambda: setattr(tsb, "batched_lbfgs", orig)
+
+
+def per_level(values, order, key):
+    """Mean of per-dataset ``values`` grouped by the datasets' ``key``."""
+    groups = {}
+    for v, name in zip(values, order):
+        groups.setdefault(name[key], []).append(v)
+    return {k: float(np.mean(g)) for k, g in sorted(groups.items())}
+
+
+def study_batched_phase(torch, ck, cov, dev, st: dict) -> dict:
+    """Phase 10: B1's lane axis against single-lane launches and its
+    float64 plain version, then the batched study through
+    ``cli.main(["study", "--fit-mode", "device-batched", ...])`` over the
+    reference's 90-dataset design (launch counters from 0), checked and
+    measured; then the batched path with ``ftol=0`` on the per-dataset
+    study's dataset against that path's RMSEs. Returns the launches of the
+    batched study's run."""
+    from mfgp_tpu_torch import cli
+    from mfgp_tpu_torch.data import io as tio
+    from mfgp_tpu_torch.data import study
+    from mfgp_tpu_torch.data import study_batched as tsb
+    from mfgp_tpu_torch.data.trainers import F64_KEY
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    lane_errs = b1_lane_checks(torch, ck, dev)
+    lane_times = b1_lane_times(torch, ck, dev)
+    emit("b1_lanes", nvidia_smi=nvidia_smi(), max_abs_err=lane_errs,
+         times=lane_times)
+    emit("batched_eval_phases", nvidia_smi=nvidia_smi(),
+         **batched_eval_phases(torch, ck, dev))
+    torch.cuda.empty_cache()
+
+    out_dir = tempfile.mkdtemp(prefix="mfgp_batched_")
+    probe = PathProbe(torch, ck, cov, (), study=study)
+    recs, restore = lane_sweep_device(torch, tsb)
+    buf = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["study", "--out", out_dir, "--fit-mode",
+                      "device-batched"] + BATCHED_ARGS)
+    finally:
+        probe.restore()
+        restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    summary = json.loads(buf.getvalue())
+    tm = probe.timings
+    stats = tm["batched"]
+    try:
+        res = os.path.join(out_dir, "GPResults")
+        names = sorted(f for f in os.listdir(res) if f.startswith("MSE_"))
+        parsed = {f: tio.parse_mse(os.path.join(res, f)) for f in names}
+        hyps = [f for f in os.listdir(res) if f.endswith("GP.txt")
+                or f.endswith("GPTP.txt")]
+        for f in hyps:
+            tio.load_hyp_vector(os.path.join(res, f))
+        gpres = [f for f in os.listdir(res) if f.startswith("GPRes_")]
+        for f in gpres:
+            assert tio.load_table(os.path.join(res, f)).data.shape == (2000,
+                                                                       8)
+        with open(os.path.join(res, "results.csv")) as f:
+            rows = f.read().splitlines()
+    except Exception as e:  # a malformed artifact fails the checks below
+        names, parsed, hyps, gpres, rows = [], {}, [], [], []
+        check("study_batched artifacts parse", False, repr(e))
+    # the datasets in run_study's order (field seed, noise level,
+    # trajectory), which the per-lane statistics follow
+    data_dir = os.path.join(out_dir, "GPDataSets")
+    staged = [f"GPData_0.2_fieldMeas_{fs}_T{t}_{v:g}.csv"
+              for fs in (0, 1, 2) for v in (0.0, 0.1, 0.2) for t in range(10)]
+    order = [tio.parse_mse_filename(n.replace("GPData", "MSE")
+                                    .replace(".csv", ".txt")) for n in staged]
+    pick = os.path.join(data_dir, f"GPData_{STUDY_PICK}.csv")
+    R = BATCHED_RUNS
+    check("study_batched artifacts", len(names) == R and len(rows) == R + 1
+          and len(hyps) == 4 * R and len(gpres) == R
+          and all(len(p) == 8 for p in parsed.values())
+          and summary["overall"]["n"] == R,
+          f"{len(names)} MSE files of 8 metrics, {len(hyps)} hyperparameter "
+          f"files, {len(gpres)} GPRes grids (2,000 x 8), results.csv with "
+          f"{len(rows) - 1} rows, summary n={summary['overall']['n']} "
+          f"(the reference's {R}-dataset design)")
+    rm = [v for p in parsed.values() for k, v in p.items()
+          if k.startswith("RMSE")]
+    wm = [v for p in parsed.values() for k, v in p.items()
+          if k.startswith("WRMSE")]
+    repairs = {k: stats[k]["repairs"] for k in tsb.FAMILIES}
+    check("study_batched RMSE finite", len(rm) == 4 * R
+          and bool(np.isfinite(rm).all()), f"{len(rm)} RMSE values")
+    check("study_batched WRMSE finite", len(wm) == 4 * R
+          and bool(np.isfinite(wm).all())
+          and tm[F64_KEY] == sum(repairs.values()),
+          f"{len(wm)} WRMSE values finite after {tm[F64_KEY]} float64 "
+          f"repair(s) on the card, per family {repairs}")
+    climbed = {}
+    for k in tsb.FAMILIES:
+        for b, (fs, f0) in enumerate(zip(stats[k]["f"], stats[k]["f0"])):
+            good = [f for f in fs if np.isfinite(f) and f < 1e19]
+            if not good or min(good) > f0[0]:
+                climbed.setdefault(k, []).append(b)
+    check("study_batched NLML", not climbed,
+          f"each dataset's best NLML <= its row-0 start in every family; "
+          f"others (family: datasets): {climbed}")
+    check("study_batched on the card", recs and all(
+        r["on_cuda"] and r["dtype"] == "torch.float32" for r in recs),
+        f"sweeps {[(r['lanes'], r['on_cuda'], r['dtype']) for r in recs]}")
+    fit_chunk, eval_chunk = BATCHED_CHUNKS
+    rounds = {k: sum(stats[k]["rounds"][c0] for c0 in range(0, R, fit_chunk))
+              for k in tsb.FAMILIES}
+    lane_evals = {k: int(np.sum(stats[k]["evals"])) for k in tsb.FAMILIES}
+    n_eval = -(-R // eval_chunk)
+    want = (rounds["mf"] + rounds["sf"] + rounds["sfTP"] + 2 * rounds["nisf"]
+            + n_eval * (3 + 3 + 3 + 4))
+    check("study_batched B1 by rounds", launches["ar1_cov_fused"] == want,
+          f"B1 launches {launches['ar1_cov_fused']} = rounds (one per "
+          f"round, two per NIGP round: {rounds}) + 13 per evaluation chunk "
+          f"x {n_eval} = {want}; the lanes' evaluations were {lane_evals}")
+
+    # the batched path with ftol=0 on the per-dataset study's dataset
+    t1 = time.perf_counter()
+    one = tsb.process_datasets_batched(
+        [pick], os.path.join(out_dir, "FieldData", "FieldSettings0.txt"),
+        cfg=SimConfig(seed=0, vmn=0.2), ftol=0.0, device=dev)
+    one_s = time.perf_counter() - t1
+    got = next(iter(one.values()))
+    ref = st["metrics"]
+    ratios = {k: got[k] / ref[k] for k in ("RMSE mf", "RMSE sf",
+                                           "RMSE sfTP")}
+    check("study_batched ftol=0 = per-dataset device path",
+          all(abs(r - 1.0) <= 0.05 for r in ratios.values()),
+          f"RMSE batched / per-dataset on {STUDY_PICK}: {ratios} (rtol "
+          "0.05)")
+
+    window = study_batched_idle(torch, tsb, data_dir, out_dir, staged[:8])
+    fam = {k: {"fit_s": stats[k]["fit_s"], "eval_s": stats[k]["eval_s"],
+               "rounds": rounds[k], "lane_evaluations": lane_evals[k],
+               "evals_per_lane_mean": float(np.mean(stats[k]["evals"])),
+               "evals_per_lane_max": int(np.max(stats[k]["evals"])),
+               "iterations_per_lane_mean": float(np.mean(stats[k]["k"])),
+               "lanes_at_maxiter": int(np.sum(np.asarray(stats[k]["k"])
+                                              >= 200)),
+               "evals_per_lane_by_vmn": per_level(
+                   np.mean(stats[k]["evals"], axis=1), order,
+                   "velVariance"),
+               "repairs": repairs[k]} for k in tsb.FAMILIES}
+    emit("study_batched", wall_s=wall, datasets=R, nvidia_smi=nvidia_smi(),
+         chunks={"fit": fit_chunk, "eval": eval_chunk},
+         stages={"filter_s": tm["filter_s"],
+                 "field_binning_and_their_files_s": tm["pipeline_s"],
+                 "batched_fits_and_evaluations_s": tm["trainers_s"],
+                 "aggregate_s": tm["aggregate_s"]},
+         families=fam, launches=launches, peak_memory_gb=peak,
+         wmse_f64_count=tm[F64_KEY],
+         ftol0_vs_per_dataset={"ratios": ratios, "seconds": one_s,
+                               "batched": got, "per_dataset": ref},
+         idle=window, summary_overall=summary["overall"])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
+
+
+def study_batched_idle(torch, tsb, data_dir, out_dir, names) -> dict:
+    """The device's idle share over a bounded window of the batched path:
+    ``process_datasets_batched`` on 8 of the study's datasets with every
+    fit cut to 10 iterations, under ``torch.profiler``."""
+    paths = [os.path.join(data_dir, n) for n in names]
+    settings = [os.path.join(out_dir, "FieldData",
+                             f"FieldSettings{n.split('_')[3]}.txt")
+                for n in names]
+
+    def window():
+        tsb.process_datasets_batched(paths, settings, maxiter=10)
+
+    window()
+    out = device_idle_share(torch, window)
+    out["window"] = (f"process_datasets_batched on {len(names)} datasets, "
+                     "maxiter=10, float32")
+    return out
+
+
+NEW_PHASES = ("study", "study_f64", "study_batched", "nigp", "recursive")
 
 
 def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
-    """Phases 7 to 9 in turn; returns each path's launches by phase."""
+    """Phases 7 to 10 in turn (the batched study, 10, after the study's
+    phases, whose dataset it compares with); returns each path's launches
+    by phase."""
     launches = {}
     st = None
     try:
-        if "study" in only or "study_f64" in only:
+        if {"study", "study_f64", "study_batched"} & set(only):
             st = study_phase(torch, ck, cov, dev)
             launches["study"] = st["launches"]
         if "study_f64" in only:
             study_f64_phase(torch, ck, cov, dev, st)
+        if "study_batched" in only:
+            torch.cuda.empty_cache()
+            launches["study_batched"] = study_batched_phase(torch, ck, cov,
+                                                            dev, st)
     finally:
         if st is not None:
             shutil.rmtree(st["out_dir"], ignore_errors=True)
@@ -1910,7 +2388,7 @@ def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
 
 
 def only_phases(names) -> int:
-    """``--only``: the build and the named phases of 7 to 9; no result
+    """``--only``: the build and the named phases of 7 to 10; no result
     line."""
     import torch
 

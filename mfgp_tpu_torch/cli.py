@@ -159,7 +159,8 @@ def cmd_study(args):
         closed_loop=args.closed_loop,
         duration=args.duration,
         fit_mode=args.fit_mode,
-        dtype=_fit_dtype(args.fit_mode), device=device, timings=timings)
+        dtype=_fit_dtype(args.fit_mode), device=device, timings=timings,
+        fit_chunk=args.fit_chunk, eval_chunk=args.eval_chunk, ftol=args.ftol)
     _report_f64(timings[F64_KEY])
     print(json.dumps(rep, indent=1))
 
@@ -215,13 +216,14 @@ def build_parser():
                    help="scipy = L-BFGS-B on the autodiff NLML (float64); "
                         "device = restart-batched fits (float32, through "
                         "the CUDA kernels on the card); device-batched = "
-                        "the whole matrix at once (not ported yet: raises)")
-    # the JAX package's flags of the device-batched mode: accepted, so a
-    # command line written for it parses here, and read by that mode alone
+                        "the whole matrix at once, every dataset a lane of "
+                        "one batch per model family (float32)")
     p.add_argument("--fit-chunk", type=int, default=8,
-                   help="device-batched only: datasets per fit launch")
+                   help="device-batched only: datasets per call of a "
+                        "model family's fit sweep")
     p.add_argument("--eval-chunk", type=int, default=8,
-                   help="device-batched only: datasets per eval launch")
+                   help="device-batched only: datasets per call of its "
+                        "evaluation")
     p.add_argument("--ftol", type=float, default=1e-6,
                    help="device-batched only: relative-f stagnation stop "
                         "of the restart-batched L-BFGS lanes")

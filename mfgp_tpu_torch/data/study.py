@@ -11,9 +11,10 @@ ground-truth trajectory CSV. ``run_study`` runs it end to end:
       4. aggregate -> results.csv + summary
 
 reproducing the reference's 10 x 3 x 3 study design
-(reference/resultParser.py:44-55) at any scale. Trajectories from a
-closed-loop exploration run and the matrix-batched fits of the JAX package
-wait for their modules.
+(reference/resultParser.py:44-55) at any scale. With
+``fit_mode="device-batched"`` step 3 runs once for the whole matrix, every
+dataset a lane of one batch per model family (``data.study_batched``).
+Trajectories from a closed-loop exploration run wait for their module.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from mfgp_tpu_torch.data.aggregate import collect_results, summary
 from mfgp_tpu_torch.data.io import Table
 from mfgp_tpu_torch.data.pipeline import (generate_estimates_batch,
                                           run_pipeline)
+from mfgp_tpu_torch.data.study_batched import process_datasets_batched
 from mfgp_tpu_torch.data.trainers import (F64_KEY, _check_fit_mode,
                                           process_dataset)
 from mfgp_tpu_torch.fields.wrbf import (WRBFField, default_sim_field,
@@ -105,18 +107,26 @@ def run_study(out_dir: str, traj_seeds=(0, 1), vmn_levels=(0.0, 0.2),
               closed_loop: bool = False, optimize: bool = True,
               duration: float = 1200.0, fit_mode: str = "scipy",
               dtype=None, device=CUDA, filter_noises=None,
-              timings: dict | None = None):
+              timings: dict | None = None, fit_chunk: int = 8,
+              eval_chunk: int = 8, ftol: float = 1e-6):
     """The full sweep. Returns the aggregate summary dict; writes the
     reference's artifact tree under ``out_dir``.
 
-    ``fit_mode="device-batched"`` waits for its module (its ``fit_chunk``,
-    ``eval_chunk`` and ``ftol`` options arrive with it), as ``closed_loop``
-    does. ``filter_noises`` maps ``(field seed, vmn)`` to
-    the per-trajectory standard normal draws of the filter's measurement
-    noise (``generate_estimates_batch``'s ``noises``) in place of the
-    seeded generator's. ``timings``, when given, collects the seconds of
-    each stage (filter, pipeline, trainers, aggregate) and, under
-    ``"wmse_f64_count"``, the number of WMSE metrics redone in float64. The summary gains nothing beyond the JAX package's.
+    ``fit_mode="device-batched"``: the whole matrix is staged first
+    (pipeline per run), then every dataset is fitted and evaluated in one
+    ``process_datasets_batched`` call, as lanes of one batch per model
+    family, ``fit_chunk`` / ``eval_chunk`` datasets per call; ``ftol`` is
+    its restart lanes' stagnation stop (0.0 restores the per-dataset fits'
+    pure max|g| < tol criterion). ``closed_loop`` waits for its module.
+    ``filter_noises`` maps ``(field seed, vmn)`` to the per-trajectory
+    standard normal draws of the filter's measurement noise
+    (``generate_estimates_batch``'s ``noises``) in place of the seeded
+    generator's. ``timings``, when given, collects the seconds of each
+    stage (filter, pipeline, trainers, aggregate), under
+    ``"wmse_f64_count"`` the number of WMSE metrics redone in float64, and
+    with ``device-batched`` under ``"batched"`` the sweeps' per-family
+    statistics (``process_datasets_batched``'s ``stats``). The summary
+    gains nothing beyond the JAX package's.
     """
     import time
 
@@ -124,7 +134,9 @@ def run_study(out_dir: str, traj_seeds=(0, 1), vmn_levels=(0.0, 0.2),
         raise NotImplementedError(
             "closed_loop=True waits for mfgp_tpu_torch.sim (ExplorationSim), "
             "which is not ported yet; scripted trajectories run")
-    _check_fit_mode(fit_mode)
+    _check_fit_mode(fit_mode, batched=True)
+    batched = fit_mode == "device-batched"
+    staged: list[tuple[str, str]] = []
     base_cfg = cfg or SimConfig()
     os.makedirs(out_dir, exist_ok=True)
     res_dir = os.path.join(out_dir, "GPResults")
@@ -161,17 +173,35 @@ def run_study(out_dir: str, traj_seeds=(0, 1), vmn_levels=(0.0, 0.2),
                 timings["pipeline_s"] += clock() - t0
                 ds_name = (f"GPData_{run_cfg.meas_rate:g}_fieldMeas_"
                            f"{fseed}_{name}.csv")
+                gpdata_path = os.path.join(out_dir, "GPDataSets", ds_name)
+                settings_path = os.path.join(out_dir, "FieldData",
+                                             f"FieldSettings{fseed}.txt")
+                if batched:
+                    staged.append((gpdata_path, settings_path))
+                    continue
                 t0 = clock()
                 _, metrics = process_dataset(
-                    os.path.join(out_dir, "GPDataSets", ds_name),
-                    os.path.join(out_dir, "FieldData",
-                                 f"FieldSettings{fseed}.txt"),
+                    gpdata_path, settings_path,
                     out_dir=res_dir, cfg=run_cfg, optimize=optimize,
                     fit_mode=fit_mode,
                     dtype=dtype if dtype is not None else np.float64,
                     device=device)
                 timings["trainers_s"] += clock() - t0
                 timings[F64_KEY] += metrics[F64_KEY]
+
+    if batched:
+        # the evaluation's settings (test grid, t_cut, WMSE normalisation)
+        # are the same in every (seed, vmn) config of the matrix
+        t0 = clock()
+        res = process_datasets_batched(
+            [p for p, _ in staged], [s for _, s in staged], out_dir=res_dir,
+            cfg=base_cfg,
+            dtype=dtype if dtype is not None else np.float32,
+            verbose=True, fit_chunk=fit_chunk, eval_chunk=eval_chunk,
+            ftol=ftol, device=device,
+            stats=timings.setdefault("batched", {}))
+        timings["trainers_s"] += clock() - t0
+        timings[F64_KEY] += sum(m[F64_KEY] for m in res.values())
 
     t0 = clock()
     rows = collect_results(os.path.join(res_dir, "MSE_*.txt"),

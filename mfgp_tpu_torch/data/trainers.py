@@ -18,9 +18,16 @@ work unchanged on these outputs.
 The models and the evaluation live on ``device``, the card unless the
 caller asks for the CPU, and nothing leaves it but scalars and diagonals.
 A WMSE whose float32 posterior covariance is numerically indefinite is
-redone in float64 with jitter retries on the same device (``wmse_f64``;
-the JAX package does this repair on the host, ``wmse_host64``), and
-``evaluate_models`` counts how often that happened.
+redone in float64 with jitter retries on the same device (``wmse_f64``),
+and ``evaluate_models`` counts how often that happened. The JAX package
+makes both of its repairs on the host: ``wmse_host64`` on the
+per-dataset path, and on the batched study's (``_host64_wmse``) a float64
+recomputation of the lane's whole posterior first, which the port's
+``data.study_batched`` makes on the device before ``wmse_f64``.
+
+``fit_mode="device-batched"`` (``process_directory``) fits and evaluates
+every dataset of a directory at once, as lanes of one batch per model
+family (``data.study_batched.process_datasets_batched``).
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from mfgp_tpu_torch.ops.linalg import weighted_mse
 from mfgp_tpu_torch.utils.configs import SimConfig
 from mfgp_tpu_torch.utils.device import CUDA
 
-FIT_MODES = ("scipy", "device")
+FIT_MODES = ("scipy", "device", "device-batched")
 # the key under which evaluate_models reports its float64 WMSE repairs
 F64_KEY = "wmse_f64_count"
 
@@ -53,13 +60,12 @@ class TrainedModels(NamedTuple):
     nigp: NIGP
 
 
-def _check_fit_mode(fit_mode: str) -> None:
-    if fit_mode == "device-batched":
-        raise NotImplementedError(
-            "fit_mode='device-batched' waits for "
-            "mfgp_tpu_torch.data.study_batched, which is not ported yet; "
-            "use 'device' or 'scipy'")
-    if fit_mode not in FIT_MODES:
+def _check_fit_mode(fit_mode: str, batched: bool = False) -> None:
+    """``fit_mode`` is one of ``FIT_MODES``; ``device-batched`` only where
+    the caller batches (``batched``): a single dataset's models are fitted
+    by the other two."""
+    if fit_mode not in FIT_MODES or (fit_mode == "device-batched"
+                                     and not batched):
         raise ValueError(fit_mode)
 
 
@@ -265,16 +271,29 @@ def process_directory(gpdata_dir: str, field_dir: str, out_dir: str,
                       fit_mode: str = "scipy", dtype=np.float64,
                       verbose: bool = False, device=CUDA):
     """Sweep a GPDataSets directory (resumable by output existence);
-    returns ``{file name: metrics}`` of the datasets processed now."""
-    _check_fit_mode(fit_mode)
-    results = {}
+    returns ``{file name: metrics}`` of the datasets processed now.
+
+    ``fit_mode="device-batched"``: every dataset still to do is fitted and
+    evaluated at once, as lanes of one batch per model family
+    (``data.study_batched.process_datasets_batched``)."""
+    _check_fit_mode(fit_mode, batched=True)
+    tasks = []
     for fname in sorted(os.listdir(gpdata_dir)):
         if not fname.endswith(".csv"):
             continue
         done, gpdata_path, settings = dataset_task(
             fname, gpdata_dir, field_dir, out_dir, resume)
-        if done:
-            continue
+        if not done:
+            tasks.append((fname, gpdata_path, settings))
+    if fit_mode == "device-batched":
+        from mfgp_tpu_torch.data.study_batched import \
+            process_datasets_batched
+
+        return process_datasets_batched(
+            [t[1] for t in tasks], [t[2] for t in tasks], out_dir, cfg=cfg,
+            kernel=kernel, dtype=dtype, verbose=verbose, device=device)
+    results = {}
+    for fname, gpdata_path, settings in tasks:
         _, metrics = process_dataset(gpdata_path, settings, out_dir, cfg,
                                      kernel=kernel, optimize=optimize,
                                      fit_mode=fit_mode, dtype=dtype,

@@ -218,7 +218,9 @@ def filter_trajectory(model: KFModel, t, pos_true, seed: int = 0,
     if graph_steps is None:
         graph_steps = 128 if device.type == "cuda" else 0
     with torch.no_grad():
-        if graph_steps and device.type == "cuda":
+        if n == 0:  # one row: no step to run, empty columns (as JAX's scan)
+            out = torch.zeros((B, 0, 9), **z)
+        elif graph_steps and device.type == "cuda":
             out = _run_graphed(step, x0, P0, inputs, n,
                                min(graph_steps, n))
         else:

@@ -158,6 +158,21 @@ def nlml_value_and_grad(params: GPParams, X, y, extra_noise_diag=0.0,
     return val, grad
 
 
+def nlml_value_and_grad_lanes(params: GPParams, X, y, kernel: str = "rbf",
+                              jitter: float = 0.0):
+    """``nlml_value_and_grad`` of L lanes at once, each lane its own dataset
+    (``params``' fields (L,), (L, D), (L,); X (L, N, D); y (L, N)):
+    ``mfgp.nlml_value_and_grad_lanes`` at F=1."""
+    L, N = X.shape[:2]
+    lv = params.log_variance
+    p = _mf.MFGPParams(lv[:, None], params.log_lengthscales[:, None, :],
+                       lv.new_zeros((L, 0)), params.log_noise[:, None])
+    fid = torch.zeros((L, N), dtype=torch.long, device=X.device)
+    val, g = _mf.nlml_value_and_grad_lanes(p, X, fid, y, kernel, jitter)
+    return val, GPParams(g.log_variances[:, 0], g.log_lengthscales[:, 0],
+                         g.log_noises[:, 0])
+
+
 def nlml_value_grad_state(params: GPParams, X, y, extra_noise_diag=0.0,
                           kernel: str = "rbf", jitter: float = 0.0):
     """(value, grad, GPState) sharing one factorization."""

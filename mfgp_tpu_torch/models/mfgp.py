@@ -253,6 +253,40 @@ def nlml_value_and_grad(params: MFGPParams, X, fid, y, kernel: str = "rbf",
     return val, grad
 
 
+def nlml_value_and_grad_lanes(params: MFGPParams, X, fid, y,
+                              kernel: str = "rbf", jitter: float = 0.0):
+    """``nlml_value_and_grad`` of L lanes at once, each lane its own
+    dataset: every field of ``params`` carries a leading lane axis ((L, F),
+    (L, F, D), (L, F-1), (L, F)), as do X (L, N, D), fid (L, N) and y
+    (L, N). ``_nlml_vg_core``'s ``inv_mode=None`` over lanes: the Grams by
+    one launch of B1's lane axis (CUDA float32), then batched Cholesky,
+    alpha, logdet, K^-1 by one batched ``cholesky_solve``, and the
+    trace-identity contractions over the lane axis (``grad_from_kinv``). A
+    lane whose Gram does not factor gets a NaN value and gradient, for the
+    caller's ``penalize_nonfinite``; nothing raises and nothing is read
+    back to the host. Returns ``(val (L,), MFGPParams of gradients)``."""
+    if kernel not in ("rbf", "matern32"):
+        raise NotImplementedError(f"analytic gradient: {kernel}")
+    N = X.shape[-2]
+    v, ls, rhos, nz = (params.variances, params.lengthscales, params.rhos,
+                       params.noises)
+    Kn = _cov.ar1_cov_lanes(v, ls, rhos, X, fid, X, fid, kernel,
+                            torch.gather(nz, -1, fid) + jitter)
+    L = _la.chol(Kn)
+    del Kn
+    logdet = _la.logdet_from_chol(L)
+    alpha = _la.solve_posterior(L, y)
+    Kinv = _la.kinv_from_chol(L)
+    del L
+    g_logvar, g_logls, g_lognoise = _ck.grad_from_kinv(
+        Kinv, alpha, X, fid, v, ls, rhos, nz, kernel)
+    del Kinv
+    val = (0.5 * torch.sum(y * alpha, dim=-1) + 0.5 * logdet
+           + 0.5 * N * _LOG2PI)
+    return val, MFGPParams(g_logvar, g_logls, torch.zeros_like(rhos),
+                           g_lognoise)
+
+
 def nlml_value_grad_state(params: MFGPParams, X, fid, y,
                           kernel: str = "rbf", jitter: float = 0.0):
     """(value, grad, MFGPState) sharing one factorization: a fit's last

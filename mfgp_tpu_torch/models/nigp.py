@@ -93,37 +93,41 @@ def posterior_mean_grads(X, y, lengthscales, sigma_f, sigma_y,
     with the derivative sum contracted by matrix products:
 
         grads[i, d] = (1/l_d^2) * [ (K @ (alpha*X))[i,d] - X[i,d]*(K@alpha)[i] ]
+
+    X (N, D), y (N,), or with one leading lane axis, each lane its own
+    dataset (X (L, N, D), y (L, N), lengthscales (L, D), sigma_f and
+    sigma_y (L,), noise_diag (L, N)); returns ``(Ka (..., N), grads
+    (..., N, D))``.
     """
-    N = X.shape[0]
     lengthscales = _like(lengthscales, X)
     K = _cc.sf_cov_diff(sigma_f, lengthscales, X, "rbf")
-    obs = _like(sigma_y, X) ** 2 + (noise_diag if noise_diag is not None
-                                    else 0.0)
-    Kn = _la.diag_add(K, torch.broadcast_to(obs, (N,)))
+    obs = (_like(sigma_y, X) ** 2)[..., None] + (
+        noise_diag if noise_diag is not None else 0.0)
+    Kn = _la.diag_add(K, torch.broadcast_to(obs, X.shape[:-1]))
     L = _la.chol(Kn)
     del Kn
     alpha = _la.solve_posterior(L, y)
-    Ka = K @ alpha  # == posterior mean at train
-    KaX = K @ (alpha[:, None] * X)
-    grads = (KaX - X * Ka[:, None]) / (lengthscales ** 2)
+    Ka = (K @ alpha[..., None])[..., 0]  # == posterior mean at train
+    KaX = K @ (alpha[..., None] * X)
+    grads = (KaX - X * Ka[..., None]) / (lengthscales[..., None, :] ** 2)
     return Ka, grads
 
 
 def _unpack(log_hyp, D: int):
-    return (torch.exp(log_hyp[:D]), torch.exp(log_hyp[D]),
-            torch.exp(log_hyp[D + 1]), torch.exp(log_hyp[D + 2:]))
+    return (torch.exp(log_hyp[..., :D]), torch.exp(log_hyp[..., D]),
+            torch.exp(log_hyp[..., D + 1]), torch.exp(log_hyp[..., D + 2:]))
 
 
 def _nlml_from_v(ls, sigma_f, sigma_y, v, X, y, jitter):
-    N = X.shape[0]
+    N = X.shape[-2]
     K = _cc.sf_cov_diff(sigma_f, ls, X, "rbf")
-    Kn = _la.diag_add(K, sigma_y ** 2 + v + jitter)
+    Kn = _la.diag_add(K, (sigma_y ** 2)[..., None] + v + jitter)
     del K
     L = _la.chol(Kn)
     del Kn
     alpha = _la.solve_posterior(L, y)
-    return (0.5 * torch.dot(y, alpha) + 0.5 * _la.logdet_from_chol(L)
-            + 0.5 * N * _LOG2PI)
+    return (0.5 * torch.sum(y * alpha, dim=-1)
+            + 0.5 * _la.logdet_from_chol(L) + 0.5 * N * _LOG2PI)
 
 
 def nlml(log_hyp, X, y, grad_fixed, extra_noise_diag=None,
@@ -134,8 +138,8 @@ def nlml(log_hyp, X, y, grad_fixed, extra_noise_diag=None,
     observation-noise diagonal; the 1e-8 jitter matches the reference.
     Differentiable by autograd in ``log_hyp``.
     """
-    ls, sigma_f, sigma_y, sigma_x = _unpack(log_hyp, X.shape[1])
-    v = torch.sum((grad_fixed ** 2) * (sigma_x[None, :] ** 2), dim=1)
+    ls, sigma_f, sigma_y, sigma_x = _unpack(log_hyp, X.shape[-1])
+    v = torch.sum((grad_fixed ** 2) * (sigma_x[..., None, :] ** 2), dim=-1)
     if extra_noise_diag is not None:
         v = v + extra_noise_diag
     return _nlml_from_v(ls, sigma_f, sigma_y, v, X, y, jitter)
@@ -150,10 +154,15 @@ def nlml_native(log_hyp, X, y, jitter: float = 1e-8):
     (reference/NIGP.py:215-240); under autodiff the exact joint objective
     removes the outer loop. One evaluation factorises twice, and its
     backward runs two Cholesky backwards.
+
+    With one leading lane axis (log_hyp (L, 2D + 2), X (L, N, D), y (L, N)
+    -> (L,)) each lane is its own dataset, its value depending on its own
+    row only; on the card each of an evaluation's two Grams is one launch
+    of B1's lane axis.
     """
-    ls, sigma_f, sigma_y, sigma_x = _unpack(log_hyp, X.shape[1])
+    ls, sigma_f, sigma_y, sigma_x = _unpack(log_hyp, X.shape[-1])
     _, grads = posterior_mean_grads(X, y, ls, sigma_f, sigma_y)
-    v = torch.sum((grads ** 2) * (sigma_x[None, :] ** 2), dim=1)
+    v = torch.sum((grads ** 2) * (sigma_x[..., None, :] ** 2), dim=-1)
     return _nlml_from_v(ls, sigma_f, sigma_y, v, X, y, jitter)
 
 

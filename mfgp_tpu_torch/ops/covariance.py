@@ -14,6 +14,12 @@ an autograd Function whose forward is the kernel and whose backward is the
 closed-form contraction of the cotangent with each fidelity's terms
 (the JAX package's custom VJP). Elsewhere autograd differentiates the plain
 composition, as JAX's autodiff does.
+
+``ar1_cov_lanes`` and ``sf_cov_diff`` take a leading lane axis on every
+argument, each lane its own problem (the batched study's datasets x
+restarts): on the card one launch of B1's lane axis serves all lanes, and
+``_AR1TrainCov`` takes lanes too. Elsewhere they stack the lanes' plain
+compositions.
 """
 
 from __future__ import annotations
@@ -78,20 +84,33 @@ def sf_cross_cov(variance, lengthscales, X1, X2,
 # ---------------------------------------------------------------------------
 # differentiable training Gram
 # ---------------------------------------------------------------------------
+def ar1_cov_lanes(variances, lengthscales, rhos, X1, fid1, X2, fid2,
+                  kernel: str, noise_diag=None) -> torch.Tensor:
+    """(L, N, M) AR1 covariances of L lanes (``cuda_kernels.
+    ar1_cov_fused_lanes``'s arguments), plus ``noise_diag`` (L, N) on each
+    Gram's diagonal when given: one lane-axis B1 launch on the card, the
+    lanes' plain compositions elsewhere (CPU, float64)."""
+    fused = (_ck.ar1_cov_fused_lanes if use_cuda_kernels(X1, kernel)
+             else _ck.ar1_cov_fused_lanes_plain)
+    return fused(X1, fid1, X2, fid2, variances, lengthscales, rhos,
+                 noise_diag, kernel)
+
+
 def _dweights_drho(rhos, m: int, l: int, F: int) -> torch.Tensor:
     """(F,) row ``d W[m, :] / d rho_l``: ``prod_{k in (m, f], k != l+1}
     rho_k`` where ``m < l+1 <= f`` (rho_l couples fidelity l to l+1), else
-    0. Product form, no division, so it stays finite at rho = 0."""
+    0. Product form, no division, so it stays finite at rho = 0. ``rhos``
+    may carry leading lane axes: (..., F-1) -> (..., F)."""
     row = []
     for f in range(F):
-        p = rhos.new_zeros(())
+        p = rhos.new_zeros(rhos.shape[:-1])
         if m < l + 1 <= f:
-            p = rhos.new_ones(())
+            p = rhos.new_ones(rhos.shape[:-1])
             for k in range(m + 1, f + 1):
                 if k != l + 1:
-                    p = p * rhos[k - 1]
+                    p = p * rhos[..., k - 1]
         row.append(p)
-    return torch.stack(row)
+    return torch.stack(row, dim=-1)
 
 
 def _ar1_cov_bwd(kern: str, variances, lengthscales, rhos, X, fid, Ct):
@@ -108,63 +127,79 @@ def _ar1_cov_bwd(kern: str, variances, lengthscales, rhos, X, fid, Ct):
                     g = d W[m, fid] / d rho_l
 
     Each fidelity's N x N terms are built, contracted and freed before the
-    next (every float32 N x N buffer is 1.6 GB at N=20,000)."""
-    F = variances.shape[0]
-    N = X.shape[0]
-    w = _k.ar1_fidelity_weights(rhos, F)[:, fid]
+    next (every float32 N x N buffer is 1.6 GB at N=20,000). Every argument
+    may carry one leading lane axis (variances (L, F), lengthscales
+    (L, F, D), rhos (L, F-1), X (L, N, D), fid (L, N), Ct (L, N, N)); the
+    contractions never mix lanes."""
+    F = variances.shape[-1]
+    N = X.shape[-2]
+    W = _k.ar1_fidelity_weights(rhos, F)
+    w = torch.gather(W, -1, fid[..., None, :].expand(*W.shape[:-1], N))
     inv_ls = 1.0 / lengthscales
-    ones_x = torch.cat([X.new_ones((N, 1)), X], dim=1)
+    ones_x = torch.cat([X.new_ones(X.shape[:-1] + (1,)), X], dim=-1)
     v_bar, l_bar = [], []
-    rho_bar = [rhos.new_zeros(()) for _ in range(F - 1)]
+    rho_bar = [rhos.new_zeros(rhos.shape[:-1]) for _ in range(F - 1)]
     for m in range(F):
+        r2 = _k.sqdist(X, X, inv_ls[..., m, None, :])
         if kern == "rbf":
-            B = _k.rbf(X, X, 1.0, lengthscales[m])
+            B = torch.exp(-0.5 * r2)
         else:
             # one distance pass serves the covariance and matern32's
             # lengthscale base; same formula and guard as kernels.matern32
-            r = torch.sqrt(_k.sqdist(X, X, inv_ls[m]) + 1e-36)
+            r = torch.sqrt(r2 + 1e-36)
             e3 = torch.exp(-_k._SQRT3 * r)
             B = (1.0 + _k._SQRT3 * r) * e3
             del r
-        B = B.mul_(variances[m]).mul_(Ct)  # Ct o v_m K_m
-        wprod = w[m][:, None] * w[m][None, :]
+        del r2
+        vm = variances[..., m, None, None]
+        B = B.mul_(vm).mul_(Ct)  # Ct o v_m K_m
+        wm = w[..., m, :]
+        wprod = wm[..., :, None] * wm[..., None, :]
         A = B * wprod  # Ct o T_m
-        rA, cA = A @ ones_x, A.T @ ones_x
+        rA, cA = A @ ones_x, A.mT @ ones_x
         del A
-        v_bar.append(torch.sum(rA[:, 0]) / variances[m])
+        v_bar.append(torch.sum(rA[..., 0], dim=-1) / variances[..., m])
         if kern == "rbf":
             rE, cE = rA, cA
         else:
-            E = e3.mul_(variances[m] * 3.0).mul_(Ct).mul_(wprod)
+            E = e3.mul_(vm * 3.0).mul_(Ct).mul_(wprod)
             del e3
-            rE, cE = E @ ones_x, E.T @ ones_x
+            rE, cE = E @ ones_x, E.mT @ ones_x
             del E
         del wprod
-        quad = (torch.sum(X ** 2 * (rE[:, :1] + cE[:, :1]), dim=0)
-                - torch.sum(X * (rE[:, 1:] + cE[:, 1:]), dim=0))
-        l_bar.append(quad * inv_ls[m] ** 3)  # v_m is inside A / E
+        quad = (torch.sum(X ** 2 * (rE[..., :1] + cE[..., :1]), dim=-2)
+                - torch.sum(X * (rE[..., 1:] + cE[..., 1:]), dim=-2))
+        l_bar.append(quad * inv_ls[..., m, :] ** 3)  # v_m is inside A / E
         if F > 1:
-            Bw, Btw = B @ w[m], B.T @ w[m]
+            Bw = (B @ wm[..., :, None])[..., 0]
+            Btw = (B.mT @ wm[..., :, None])[..., 0]
             for l in range(F - 1):
-                g = _dweights_drho(rhos, m, l, F)[fid]
-                rho_bar[l] = rho_bar[l] + (g @ Bw + g @ Btw)
+                g = torch.gather(_dweights_drho(rhos, m, l, F), -1, fid)
+                rho_bar[l] = rho_bar[l] + (torch.sum(g * Bw, dim=-1)
+                                           + torch.sum(g * Btw, dim=-1))
         del B
-    return (torch.stack(v_bar), torch.stack(l_bar),
-            torch.stack(rho_bar) if rho_bar else torch.zeros_like(rhos))
+    return (torch.stack(v_bar, dim=-1), torch.stack(l_bar, dim=-2),
+            torch.stack(rho_bar, dim=-1) if rho_bar
+            else torch.zeros_like(rhos))
 
 
 class _AR1TrainCov(torch.autograd.Function):
     """The AR1 training Gram ``K(X, X)`` as a function of (variances,
     lengthscales, rhos): forward through B1 (``ar1_cov_fused``, its plain
     version on a CPU tensor), backward in closed form (``_ar1_cov_bwd``).
-    Only the O(N) inputs are saved, no N x N residual."""
+    Only the O(N) inputs are saved, no N x N residual. With a leading lane
+    axis on every input (X (L, N, D), ...) it is L Grams (L, N, N) from one
+    launch of B1's lane axis (``ar1_cov_fused_lanes``), each lane's
+    backward its own."""
 
     @staticmethod
     def forward(ctx, kern, variances, lengthscales, rhos, X, fid):
         ctx.kern = kern
         ctx.save_for_backward(variances, lengthscales, rhos, X, fid)
-        return _ck.ar1_cov_fused(X, fid, X, fid, variances, lengthscales,
-                                 rhos, kern=kern)
+        fused = (_ck.ar1_cov_fused_lanes if X.dim() == 3
+                 else _ck.ar1_cov_fused)
+        return fused(X, fid, X, fid, variances, lengthscales, rhos,
+                     kern=kern)
 
     @staticmethod
     @once_differentiable
@@ -187,12 +222,20 @@ def ar1_cov_diff(variances, lengthscales, rhos, X, fid,
 
 def sf_cov_diff(variance, lengthscales, X, kernel: str) -> torch.Tensor:
     """Differentiable single-fidelity training covariance: the F=1 case of
-    ``ar1_cov_diff`` (no rhos, every label 0)."""
+    ``ar1_cov_diff`` (no rhos, every label 0). With one leading lane axis
+    (``variance`` (L,), ``lengthscales`` (L, D), X (L, N, D) -> (L, N, N))
+    each lane is its own dataset: one launch of B1's lane axis on the card,
+    the lanes' plain kernels elsewhere."""
+    lead = X.shape[:-2]
     if use_cuda_kernels(X, kernel):
         v = torch.as_tensor(variance, dtype=X.dtype,
-                            device=X.device).reshape(1)
+                            device=X.device).reshape(lead + (1,))
         ls = torch.as_tensor(lengthscales, dtype=X.dtype,
-                             device=X.device).reshape(1, -1)
-        fid = torch.zeros(X.shape[0], dtype=torch.long, device=X.device)
-        return _AR1TrainCov.apply(kernel, v, ls, X.new_zeros(0), X, fid)
+                             device=X.device).reshape(lead + (1, -1))
+        fid = torch.zeros(X.shape[:-1], dtype=torch.long, device=X.device)
+        return _AR1TrainCov.apply(kernel, v, ls, X.new_zeros(lead + (0,)),
+                                  X, fid)
+    if lead:
+        return torch.stack([sf_cov_diff(variance[l], lengthscales[l], X[l],
+                                        kernel) for l in range(X.shape[0])])
     return _k.KERNELS[kernel](X, X, variance, lengthscales)

@@ -55,6 +55,17 @@
 // tiles that meet it. Ragged edges are masked in the kernel; nothing is
 // padded or copied.
 //
+// The lane axis: L independent covariances, one per lane, in one launch,
+// the counterpart of jax.vmap over the pallas_call (which gives its grid a
+// batch dimension). grid.z is the lane; each block moves every pointer by
+// its lane's strides and then runs as a single-lane block does, so a
+// lane's result is bit for bit that of a single-lane launch on the same
+// inputs (a single covariance is L = 1, and takes an instantiation
+// without the pointer moves). The batched fits of the study
+// run one launch for all datasets x restarts: at N ~ 700 a single-lane
+// launch is a few microseconds of work behind ~30 small launches of its
+// wrapper, and the lanes share those.
+//
 // What still bounds it: the time is about the sum of the arithmetic and
 // the stores, not their maximum. A block computes, then stores, and this
 // design does not overlap the two. The times against the bound are in
@@ -80,6 +91,8 @@ struct Args {
   int N, M, F, D;
   int sym;  // B is A: compute the tiles on and below the diagonal only
   int vec;  // 16-byte stores allowed (row stride and bases aligned)
+  // per-lane strides, in floats, of A, wA, B, wB, noise and out (and lo)
+  long long sA, swA, sB, swB, sNoise, sOut;
 };
 
 // 2^x and 1/sqrt(x) on the special-function unit, one instruction each
@@ -202,9 +215,21 @@ __device__ __forceinline__ void put(const Args& a, size_t at, float4 v,
   }
 }
 
-template <int KERN, int DS>
+template <int KERN, int DS, bool LANES>
 __global__ void __launch_bounds__(kThreads, DS < mfgp::kMaxD ? 2 : 1)
-ar1_cov_kernel(const Args a) {
+ar1_cov_kernel(Args a) {
+  if constexpr (LANES) {
+    // this block's lane: every pointer moves by the lane's strides
+    const long long z = blockIdx.z;
+    a.A += z * a.sA;
+    a.wA += z * a.swA;
+    a.B += z * a.sB;
+    a.wB += z * a.swB;
+    if (a.noise != nullptr) a.noise += z * a.sNoise;
+    a.out += z * a.sOut;
+    if (a.lo != nullptr) a.lo += z * a.sOut;
+  }
+
   __shared__ __align__(16) float sA[kStage][DS][kBM];
   __shared__ __align__(16) float sB[kStage][DS][kBM];
   __shared__ __align__(16) float swA[kStage][kBM];
@@ -306,12 +331,25 @@ ar1_cov_kernel(const Args a) {
   }
 }
 
-template <int KERN>
+template <int KERN, bool LANES>
 void launch_d(const Args& a, dim3 grid, cudaStream_t s) {
   if (a.D <= 3) {
-    ar1_cov_kernel<KERN, 3><<<grid, kThreads, 0, s>>>(a);
+    ar1_cov_kernel<KERN, 3, LANES><<<grid, kThreads, 0, s>>>(a);
   } else {
-    ar1_cov_kernel<KERN, mfgp::kMaxD><<<grid, kThreads, 0, s>>>(a);
+    ar1_cov_kernel<KERN, mfgp::kMaxD, LANES><<<grid, kThreads, 0, s>>>(a);
+  }
+}
+
+// a single covariance takes the instantiation without the lane offsets:
+// moving the pointers costs the single-lane kernel registers and 3-11 % of
+// its time at the unit's 20,000^2 Gram on the H100 (chip_smoke.py
+// --b1-times)
+template <int KERN>
+void launch_k(const Args& a, dim3 grid, cudaStream_t s) {
+  if (grid.z > 1) {
+    launch_d<KERN, true>(a, grid, s);
+  } else {
+    launch_d<KERN, false>(a, grid, s);
   }
 }
 
@@ -321,28 +359,37 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+// L lanes: A (L, F, N, D) and wA (L, F, N) at lane strides sA and swA (B,
+// wB likewise), noise (L, N) at sNoise, out and lo (L, N, ldo) at sOut;
+// lane l's block of each is one covariance. A single covariance is L = 1
+// with zero strides.
 extern "C" int mfgp_ar1_cov_f32(const float* A, const float* wA,
                                 const float* B, const float* wB,
                                 const float* noise, float* out, float* lo,
-                                int ldo, int N, int M, int F, int D, int kern,
-                                int sym, void* stream) {
-  if (N <= 0 || M <= 0) return 0;
+                                long long ldo, int L, int N, int M, int F,
+                                int D, int kern, int sym, long long sA,
+                                long long swA, long long sB, long long swB,
+                                long long sNoise, long long sOut,
+                                void* stream) {
+  if (N <= 0 || M <= 0 || L <= 0) return 0;
   const auto bad = static_cast<int>(cudaErrorInvalidValue);
-  if (ldo < M || F < 1 || D < 1 || D > mfgp::kMaxD) return bad;
+  if (ldo < M || F < 1 || D < 1 || D > mfgp::kMaxD || L > 65535) return bad;
   if (kern != mfgp::kRbf && kern != mfgp::kMatern32) return bad;
-  if (sym && (A != B || wA != wB || N != M)) return bad;
+  if (sym && (A != B || wA != wB || N != M || sA != sB || swA != swB))
+    return bad;
   const long long tn = (N + kBM - 1) / kBM, tm = (M + kBM - 1) / kBM;
   if (sym ? tn * (tn + 1) / 2 > 0x7FFFFFFF : tn > 65535) return bad;
   const Args a{A, wA, B, wB, noise, out, lo, ldo, N, M, F, D, sym,
-               ldo % 4 == 0 && aligned16(out) && (lo == nullptr ||
-                                                  aligned16(lo))};
-  const dim3 grid = sym ? dim3((unsigned)(tn * (tn + 1) / 2))
-                        : dim3((unsigned)tm, (unsigned)tn);
+               ldo % 4 == 0 && sOut % 4 == 0 && aligned16(out) &&
+                   (lo == nullptr || aligned16(lo)),
+               sA, swA, sB, swB, sNoise, sOut};
+  const dim3 grid = sym ? dim3((unsigned)(tn * (tn + 1) / 2), 1, L)
+                        : dim3((unsigned)tm, (unsigned)tn, L);
   const auto s = static_cast<cudaStream_t>(stream);
   if (kern == mfgp::kRbf) {
-    launch_d<mfgp::kRbf>(a, grid, s);
+    launch_k<mfgp::kRbf>(a, grid, s);
   } else {
-    launch_d<mfgp::kMatern32>(a, grid, s);
+    launch_k<mfgp::kMatern32>(a, grid, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

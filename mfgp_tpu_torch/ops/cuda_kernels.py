@@ -5,6 +5,8 @@ PyTorch version (counterparts of ``mfgp_tpu/ops/pallas_kernels.py``).
 wrapper                CUDA source (ops/csrc/)            replaces (Pallas)
 =====================  =================================  ===================
 ``ar1_cov_fused``      ``ar1_cov.cu``                     ``ar1_cov_fused``
+``ar1_cov_fused_lanes`` ``ar1_cov.cu`` (lane axis)        ``ar1_cov_fused``
+                                                          under ``vmap``
 ``ar1_cov_split``      ``ar1_cov.cu`` (hi/lo output)      (B3's staging)
 ``syrk_grad_fused``    ``syrk_grad.cu`` + ``tf32x3.cuh``  ``syrk_grad_fused``
 ``posterior_fused``    ``posterior.cu`` + ``tf32x3.cuh``  ``posterior_fused``
@@ -17,7 +19,9 @@ operands split into TF32 hi/lo planes: ``tf32_split`` (``tf32_split.cu``)
 splits Linv or its transpose, and ``ar1_cov_split`` has B1 write the
 posterior's staged cross-covariance as hi/lo planes itself.
 ``tf32_split_plain`` is the same split in integer operations on the float32
-pattern, bit for bit.
+pattern, bit for bit. ``ar1_cov_fused_lanes`` is B1 over a leading lane
+axis, one covariance per lane in one launch: what ``jax.vmap`` makes of the
+Pallas kernel, for the batched study's datasets x restarts.
 
 Each wrapper keeps its JAX counterpart's name and argument order (without
 ``interpret`` and the Pallas tile sizes). For a tensor on the CPU it returns
@@ -64,19 +68,31 @@ def ar1_cov_fused_plain(X1, fid1, X2, fid2, variances, lengthscales, rhos,
     return K if noise_diag is None else _la.diag_add(K, noise_diag)
 
 
+def ar1_cov_fused_lanes_plain(X1, fid1, X2, fid2, variances, lengthscales,
+                              rhos, noise_diag=None,
+                              kern: str = "rbf") -> torch.Tensor:
+    """Plain lane-axis B1: the plain B1 of each lane, stacked (L, N, M)."""
+    return torch.stack([ar1_cov_fused_plain(
+        X1[l], fid1[l], X2[l], fid2[l], variances[l], lengthscales[l],
+        rhos[l], None if noise_diag is None else noise_diag[l], kern)
+        for l in range(X1.shape[0])])
+
+
 def _grad_from_sums(sv, sv2, diagW, X, fid, lengthscales, noises, kern):
     """(g_logvar, g_logls, g_lognoise) from the (F, 1+D, N) sums of B2 or
-    of its plain version, and diag(W) (pallas_kernels.py:622-644)."""
-    s = sv[:, 0, :]
-    g_logvar = 0.5 * torch.sum(s, dim=1)
-    s2, Ax2 = (s, sv[:, 1:, :]) if kern == "rbf" else (sv2[:, 0, :],
-                                                        sv2[:, 1:, :])
+    of its plain version, and diag(W) (pallas_kernels.py:622-644). Every
+    argument may carry a leading lane axis."""
+    s = sv[..., 0, :]
+    g_logvar = 0.5 * torch.sum(s, dim=-1)
+    s2, Ax2 = (s, sv[..., 1:, :]) if kern == "rbf" else (sv2[..., 0, :],
+                                                          sv2[..., 1:, :])
     inv_ls = 1.0 / lengthscales
-    g_logls = (torch.einsum("nd,mn->md", X ** 2, s2)
-               - torch.einsum("nd,mdn->md", X, Ax2)) * inv_ls ** 2
+    g_logls = (torch.einsum("...nd,...mn->...md", X ** 2, s2)
+               - torch.einsum("...nd,...mdn->...md", X, Ax2)) * inv_ls ** 2
     g_lognoise = torch.stack([
-        0.5 * noises[f] * torch.sum(torch.where(fid == f, diagW, 0.0))
-        for f in range(noises.shape[0])])
+        0.5 * noises[..., f] * torch.sum(torch.where(fid == f, diagW, 0.0),
+                                         dim=-1)
+        for f in range(noises.shape[-1])], dim=-1)
     return g_logvar, g_logls, g_lognoise
 
 
@@ -88,30 +104,42 @@ def grad_from_kinv(Kinv, alpha, X, fid, variances, lengthscales, rhos,
     forms the sums that the B2 kernel forms: ``(W o T_m) [1, X]`` per
     fidelity and, for matern32 (whose lengthscale derivative 3 var_m w w^T
     e^{-sqrt3 r} r_d^2 is not proportional to the covariance), the same
-    for ``W o (3 var_m w w^T e^{-sqrt3 r})``, then ``_grad_from_sums``."""
-    N = X.shape[0]
-    F = variances.shape[0]
-    w = _k.ar1_fidelity_weights(rhos, F)[:, fid]
-    kfn = _k.KERNELS[kern]
-    Wm = Kinv - alpha[:, None] * alpha[None, :]
-    ones_x = torch.cat([X.new_ones((N, 1)), X], dim=1)
+    for ``W o (3 var_m w w^T e^{-sqrt3 r})``, then ``_grad_from_sums``.
+
+    Every argument may carry one leading lane axis, each lane its own
+    problem (Kinv (L, N, N), alpha (L, N), X (L, N, D), fid (L, N),
+    variances (L, F), lengthscales (L, F, D), rhos (L, F-1), noises
+    (L, F)): the batched fits' gradient, whose sums never mix lanes."""
+    N = X.shape[-2]
+    F = variances.shape[-1]
+    W = _k.ar1_fidelity_weights(rhos, F)
+    w = torch.gather(W, -1, fid[..., None, :].expand(*W.shape[:-1], N))
+    Wm = Kinv - alpha[..., :, None] * alpha[..., None, :]
+    ones_x = torch.cat([X.new_ones(X.shape[:-1] + (1,)), X], dim=-1)
     sv, sv2 = [], []
     for m in range(F):  # one N x N term alive at a time
-        ww = w[m][:, None] * w[m][None, :]
-        T = variances[m] * ww * kfn(X, X, 1.0, lengthscales[m])
-        sv.append(((Wm * T) @ ones_x).T)
+        wm = w[..., m, :]
+        ww = wm[..., :, None] * wm[..., None, :]
+        inv_l = (1.0 / lengthscales[..., m, :])[..., None, :]
+        r2 = _k.sqdist(X, X, inv_l)
+        vm = variances[..., m, None, None]
+        if kern == "rbf":
+            T = vm * ww * torch.exp(-0.5 * r2)
+        else:
+            r = torch.sqrt(r2 + 1e-36)
+            T = vm * ww * ((1.0 + _k._SQRT3 * r) * torch.exp(-_k._SQRT3 * r))
+        sv.append(((Wm * T) @ ones_x).mT)
         del T
         if kern == "matern32":
-            r = torch.sqrt(_k.sqdist(X, X, 1.0 / lengthscales[m]) + 1e-36)
-            E = variances[m] * ww * (3.0 * torch.exp(-_k._SQRT3 * r))
+            E = vm * ww * (3.0 * torch.exp(-_k._SQRT3 * r))
             del r
-            sv2.append(((Wm * E) @ ones_x).T)
+            sv2.append(((Wm * E) @ ones_x).mT)
             del E
-        del ww
-    return _grad_from_sums(torch.stack(sv),
-                           torch.stack(sv2) if sv2 else None,
-                           torch.diagonal(Wm), X, fid, lengthscales, noises,
-                           kern)
+        del ww, r2
+    return _grad_from_sums(torch.stack(sv, dim=-3),
+                           torch.stack(sv2, dim=-3) if sv2 else None,
+                           torch.diagonal(Wm, dim1=-2, dim2=-1), X, fid,
+                           lengthscales, noises, kern)
 
 
 def syrk_grad_fused_plain(Linv, alpha, X, fid, variances, lengthscales,
@@ -212,14 +240,18 @@ def _launch(entry: str, device: torch.device, *args) -> None:
 
 def _prep(X, fid, variances, lengthscales, rhos):
     """Scaled inputs (F, N, D) and folded weights (F, N): the Pallas
-    kernels' ``_prep`` (``w = W[:, fid] sqrt(var)``), in float32."""
+    kernels' ``_prep`` (``w = W[:, fid] sqrt(var)``), in float32. With a
+    leading lane axis on every argument (X (L, N, D), fid (L, N), variances
+    (L, F), lengthscales (L, F, D), rhos (L, F-1)) it preps all lanes at
+    once: (L, F, N, D) and (L, F, N)."""
     f32 = dict(dtype=torch.float32, device=X.device)
     variances = torch.as_tensor(variances, **f32)
     lengthscales = torch.as_tensor(lengthscales, **f32)
     rhos = torch.as_tensor(rhos, **f32)
-    A = X[None, :, :] * (1.0 / lengthscales)[:, None, :]
-    W = _k.ar1_fidelity_weights(rhos, variances.shape[0])
-    w = W[:, fid] * torch.sqrt(variances)[:, None]
+    A = X[..., None, :, :] * (1.0 / lengthscales)[..., :, None, :]
+    W = _k.ar1_fidelity_weights(rhos, variances.shape[-1])
+    idx = fid[..., None, :].expand(*W.shape[:-1], fid.shape[-1])
+    w = torch.gather(W, -1, idx) * torch.sqrt(variances)[..., None]
     return A.contiguous(), w.contiguous()
 
 
@@ -255,17 +287,25 @@ def same_points(X1, fid1, X2, fid2) -> bool:
 
 def _launch_ar1_cov(A, wA, B, wB, noise, out, kern_id: int,
                     lo=None) -> None:
-    """B1 on prepped inputs, into ``out`` (any row stride) or, with ``lo``,
-    into the TF32 planes (out, lo) of the result; ``B is A`` (with ``wB is
-    wA``) takes the symmetric Gram's half grid. Every launch of B1's kernel
-    goes through here and counts under ``ar1_cov_fused``, posterior_fused's
-    staging too."""
-    F, N, D = A.shape
-    M = B.shape[1]
+    """B1 on prepped inputs (A (F, N, D), wA (F, N), B, wB likewise), into
+    ``out`` (any row stride) or, with ``lo``, into the TF32 planes (out,
+    lo) of the result; ``B is A`` (with ``wB is wA``) takes the symmetric
+    Gram's half grid. With a leading lane axis on every argument (A
+    (L, F, N, D), noise (L, N), out (L, N, M), ...) one launch computes
+    every lane. Every launch of B1's kernel goes through here and counts
+    once under ``ar1_cov_fused``, posterior_fused's staging too."""
+    lanes = A.dim() == 4
+    F, N, D = A.shape[-3:]
+    M = B.shape[-2]
     sym = B is A and wB is wA
+
+    def lane_stride(t):
+        return t.stride(0) if lanes and t is not None else 0
+
     _launch("mfgp_ar1_cov_f32", A.device, _ptr(A), _ptr(wA), _ptr(B),
-            _ptr(wB), _ptr(noise), _ptr(out), _ptr(lo), out.stride(0), N, M,
-            F, D, kern_id, int(sym))
+            _ptr(wB), _ptr(noise), _ptr(out), _ptr(lo), out.stride(-2),
+            A.shape[0] if lanes else 1, N, M, F, D, kern_id, int(sym),
+            *(lane_stride(t) for t in (A, wA, B, wB, noise, out)))
     LAUNCHES["ar1_cov_fused"] += 1
 
 
@@ -305,6 +345,39 @@ def ar1_cov_fused(X1, fid1, X2, fid2, variances, lengthscales, rhos,
                       device=device)
     _launch_ar1_cov(*_prep_pair(X1, fid1, X2, fid2, variances, lengthscales,
                                 rhos), noise_diag, out, kid)
+    return out
+
+
+def ar1_cov_fused_lanes(X1, fid1, X2, fid2, variances, lengthscales, rhos,
+                        noise_diag=None, kern: str = "rbf") -> torch.Tensor:
+    """B1 over a leading lane axis: lane l of the (L, N, M) result is
+    ``ar1_cov_fused`` of lane l's arguments (X1 (L, N, D), fid1 (L, N), X2
+    (L, M, D), fid2 (L, M), variances (L, F), lengthscales (L, F, D), rhos
+    (L, F-1), noise_diag (L, N)), bit for bit, in one launch. The points
+    may be broadcast views (one grid for every lane): only their prepped,
+    per-lane scaled copies reach the kernel. Handed the same tensors twice
+    (``same_points``), every lane takes its symmetric half grid."""
+    if not X1.is_cuda:
+        return ar1_cov_fused_lanes_plain(X1, fid1, X2, fid2, variances,
+                                         lengthscales, rhos, noise_diag, kern)
+    L, N, D = X1.shape
+    M = X2.shape[1]
+    kid = _kern_id("ar1_cov_fused_lanes", kern, D)
+    if (X2.shape[0], X2.shape[2]) != (L, D) or fid1.shape != (L, N) or \
+            fid2.shape != (L, M):
+        raise ValueError(f"ar1_cov_fused_lanes: X1 {tuple(X1.shape)}, X2 "
+                         f"{tuple(X2.shape)}, fid1 {tuple(fid1.shape)}, fid2 "
+                         f"{tuple(fid2.shape)}")
+    if noise_diag is not None and (N != M or noise_diag.shape != (L, N)):
+        raise ValueError(f"ar1_cov_fused_lanes: noise_diag needs square Grams "
+                         f"and shape ({L}, {N}), got "
+                         f"{tuple(noise_diag.shape)}")
+    A, wA, B, wB = _prep_pair(X1, fid1, X2, fid2, variances, lengthscales,
+                              rhos)
+    device = _require_f32("ar1_cov_fused_lanes", A=A, wA=wA, B=B, wB=wB,
+                          noise_diag=noise_diag)
+    out = torch.empty((L, N, M), dtype=torch.float32, device=device)
+    _launch_ar1_cov(A, wA, B, wB, noise_diag, out, kid)
     return out
 
 

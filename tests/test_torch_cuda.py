@@ -612,3 +612,41 @@ def test_recursive_mfgp_on_the_card(dev, gen):
     assert all(lvl.X.is_cuda for lvl in m.levels)
     mu, var = m.predict(gen.uniform(0, 4, (50, 3)))
     assert np.isfinite(mu).all() and (var > 0).all()
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("L,N,M,F", [(1, 33, 33, 3), (3, 130, 130, 1),
+                                     (5, 129, 61, 3)])
+def test_ar1_cov_fused_lanes(dev, gen, kernel, L, N, M, F):
+    """B1's lane axis: one launch for L lanes, each lane bit for bit the
+    single-lane launch on its inputs (the symmetric Gram on the same
+    tensors, the full grid otherwise), within 1e-5 of the float64 plain
+    version."""
+    X = torch.as_tensor(gen.uniform(0, 3, (L, N, 3)), dtype=torch.float32,
+                        device=dev)
+    fid = torch.as_tensor(gen.integers(0, F, (L, N)), device=dev)
+    if M == N:
+        X2, fid2 = X, fid
+    else:
+        X2 = torch.as_tensor(gen.uniform(0, 3, (L, M, 3)),
+                             dtype=torch.float32, device=dev)
+        fid2 = torch.as_tensor(gen.integers(0, F, (L, M)), device=dev)
+    v, ls, rho = _t(dev, gen.uniform(0.5, 2.0, (L, F)),
+                    gen.uniform(0.5, 2.0, (L, F, 3)),
+                    gen.uniform(0.7, 1.2, (L, F - 1)))
+    nz = (torch.as_tensor(gen.uniform(0.1, 0.3, (L, N)), dtype=torch.float32,
+                          device=dev) if M == N else None)
+    before = ck.LAUNCHES["ar1_cov_fused"]
+    K = ck.ar1_cov_fused_lanes(X, fid, X2, fid2, v, ls, rho, nz, kernel)
+    assert ck.LAUNCHES["ar1_cov_fused"] == before + 1
+    for l in range(L):
+        b = X[l] if M == N else X2[l]
+        fb = fid[l] if M == N else fid2[l]
+        one = ck.ar1_cov_fused(X[l], fid[l], b, fb, v[l], ls[l], rho[l],
+                               None if nz is None else nz[l], kernel)
+        assert torch.equal(K[l].view(torch.int32), one.view(torch.int32))
+        ref = ck.ar1_cov_fused_plain(*_f64(X[l], fid[l], b, fb, v[l], ls[l],
+                                           rho[l]),
+                                     None if nz is None else nz[l].double(),
+                                     kern=kernel)
+        assert float((K[l].double() - ref).abs().max()) <= 1e-5

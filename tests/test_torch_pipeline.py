@@ -187,6 +187,24 @@ def test_filter_trajectory_matches_jax():
         close(got[k], ref[k], 1e-9)
 
 
+@pytest.mark.parametrize("T", [1, 2])
+def test_filter_trajectory_short(T):
+    """A one-row trajectory has no step: empty (0,) and (0, 3) columns, as
+    JAX's scan gives; two rows give one step, JAX's noise injected, within
+    1e-9."""
+    t = np.arange(T) * 0.1
+    pos = np.zeros((T, 3))
+    ref = jkf.filter_trajectory(jcfg.KFConfig().model(), jnp.asarray(t),
+                                jnp.asarray(pos), jax.random.key(0))
+    got = tkf.filter_trajectory(tcfg.KFConfig().model(device=CPU), t, pos,
+                                noise=jax_noise(0, T - 1))
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k].shape == ref[k].shape == ((T - 1,) if k == "t" else
+                                                (T - 1, 3)), k
+        close(got[k], ref[k], 1e-9)
+
+
 def test_filter_trajectory_batch_and_streams():
     """The batched loop equals the single one member by member on ragged
     lengths (through ``generate_estimates_batch``'s padding); a seed

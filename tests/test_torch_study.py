@@ -272,19 +272,50 @@ def test_dataset_task_and_directory_resume(dataset, tmp_path):
     assert again[fname]["RMSE mf"] == res[fname]["RMSE mf"]
 
 
-def test_not_implemented_routes(dataset, tmp_path):
-    """What waits for later modules says so by name, and never runs as
-    another mode."""
-    with pytest.raises(NotImplementedError, match="study_batched"):
-        ttr.process_directory(str(dataset[2] / "GPDataSets"),
-                              str(dataset[2] / "FieldData"), str(tmp_path),
-                              fit_mode="device-batched", device=CPU)
-    with pytest.raises(NotImplementedError, match="study_batched"):
-        tstudy.run_study(str(tmp_path), fit_mode="device-batched",
-                         device=CPU)
+@pytest.fixture
+def short_batched(monkeypatch):
+    """The batched study's sweeps cut to a few iterations."""
+    from mfgp_tpu_torch.data import study_batched as tsb
+
+    orig = tsb.batched_lbfgs
+    monkeypatch.setattr(tsb, "batched_lbfgs", lambda *a, **k: orig(
+        *a, **{**k, "maxiter": 3}))
+    return tsb
+
+
+def test_not_implemented_routes(dataset, short_batched, tmp_path):
+    """``device-batched`` routes to the batched study from
+    ``process_directory`` (the same results as calling it) and from
+    ``run_study`` (its statistics under ``timings["batched"]``); what waits
+    for a later module says so by name, and never runs as another mode."""
+    data_dir, field_dir = dataset[2] / "GPDataSets", dataset[2] / "FieldData"
+    fname = "GPData_0.2_fieldMeas_0_T0_0.1.csv"
+    res = ttr.process_directory(str(data_dir), str(field_dir),
+                                str(tmp_path / "d"),
+                                fit_mode="device-batched", device=CPU)
+    direct = short_batched.process_datasets_batched(
+        [str(data_dir / fname)], [str(field_dir / "FieldSettings0.txt")],
+        dtype=np.float64, device=CPU)
+    assert list(res) == [fname] and res == direct
+    assert ttr.F64_KEY in res[fname] and len(res[fname]) == 9
+    assert len(os.listdir(tmp_path / "d")) == 6
+    assert ttr.process_directory(str(data_dir), str(field_dir),
+                                 str(tmp_path / "d"),
+                                 fit_mode="device-batched", device=CPU) == {}
+    timings = {}
+    rep = tstudy.run_study(str(tmp_path / "s"), traj_seeds=(0,),
+                           vmn_levels=(0.1,), duration=100.0,
+                           fit_mode="device-batched", device=CPU,
+                           timings=timings, fit_chunk=1, eval_chunk=1)
+    assert rep["overall"]["n"] == 1
+    assert set(timings["batched"]) == set(short_batched.FAMILIES)
+    assert len(os.listdir(tmp_path / "s" / "GPResults")) == 7
+    with pytest.raises(ValueError):
+        ttr.train_models(tio.load_gp_dataset(str(data_dir / fname)),
+                         fit_mode="device-batched", device=CPU)
     with pytest.raises(NotImplementedError, match="mfgp_tpu_torch.sim"):
-        tstudy.run_study(str(tmp_path), closed_loop=True, device=CPU)
-    assert not os.listdir(tmp_path)
+        tstudy.run_study(str(tmp_path / "c"), closed_loop=True, device=CPU)
+    assert not os.path.exists(tmp_path / "c")
 
 
 # ---------------------------------------------------------------------------
@@ -414,6 +445,16 @@ def test_cli_surface(capsys):
         assert flags(sub.choices[cmd]) == flags(jsub.choices[cmd]), cmd
     with pytest.raises(SystemExit):
         tcli.main(["--cpu", "explore"])
-    with pytest.raises(NotImplementedError, match="study_batched"):
-        tcli.main(["--cpu", "study", "--out", "unused", "--fit-mode",
-                   "device-batched"])
+
+
+def test_cli_device_batched(short_batched, tmp_path, capsys):
+    """``study --fit-mode device-batched`` with its chunk and ``ftol``
+    flags runs the batched study: the summary has the keys of the JAX
+    package's, over the one dataset."""
+    got = run_cli(tcli.main, ["--cpu", "study", "--out", str(tmp_path),
+                              "--trajectories", "1", "--vmn", "0.1",
+                              "--duration", "100", "--fit-mode",
+                              "device-batched", "--fit-chunk", "1",
+                              "--eval-chunk", "1", "--ftol", "0"], capsys)
+    assert got["overall"]["n"] == 1
+    assert set(got["overall"]) >= {"RMSE mf", "WRMSE nisf", "n"}
