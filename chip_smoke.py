@@ -91,6 +91,35 @@
    rounds and evaluations per lane and family (by velocity-noise level),
    peak memory, the repairs per family and the idle share over a bounded
    window.
+11. Planner: the study's dataset (trajectory 0, vmn 0.2, field seed 0;
+   N of about 705) through the filter and the pipeline, the 3-fidelity
+   MFGP and the GP on it in float32 with one short ``optimize_restarts``
+   each, then, with the launch counters from 0, one replan per cost as the
+   simulator makes it: the EID on the 2,000-point grid through
+   ``predict``, the cost (ErgodicCost and FourierErgodicCost on the EID
+   grid, SFInfoGainCost, MFInfoGainCost, and BatchLogDetCost and
+   MFBatchLogDetCost on the 300-point IG grid), and ``RIGPlanner.plan``
+   at the simulator's settings (``SimConfig()``, ``max_iter=40``, a
+   fixed seed, the WRBF field as the edges' environment) but the planner
+   benchmark's budget ``B=150`` (bench.py:208-213). Held to: a best path
+   with a finite score per replan, B1 launched exactly once per
+   covariance block per scoring call (4 MF sequential, 2 SF sequential, 3
+   log-det; none for the ergodic costs), not once per candidate, and the
+   first lane-axis launch of each kind those replans made bit for bit
+   against single-lane launches and within 1e-5 x max(1, largest entry)
+   of float64. Then one replan per cost at the simulator's own budget, its
+   first tranche ``B=15`` (sim/explore.py:343-345), with the same holds on
+   its path, its B1 count and its lane-axis launches. Then, on 512 paths of a replan's graph scored as one batch,
+   every cost in float32 against the same cost on float64 copies of the
+   models on the card (1e-4 of the largest score for the ergodic costs,
+   1e-2 for the others; non-finite float32 scores counted), B1's lane
+   launches of that batch bit for bit against single-lane launches and
+   within 1e-5 x max(1, largest entry) of float64 (and timed, with their
+   bounds), the log-det costs' grid blocks against float64
+   (``b1_path_check``), and ``cli infogain-test`` on the card. Prints per
+   cost the replan's wall and stages, the planner's stats, the seconds in
+   scoring calls, peak memory and the idle share over one replan
+   (``torch.profiler``).
 
 Every phase prints one JSON line (the fit phase one per part). A failed
 build or launch raises; a failed check is reported and the script exits 1
@@ -99,9 +128,9 @@ after the last phase. The last line, on success only, is
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive
+    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner
 
-runs the build and only the named phases of 7 to 10 (while working on
+runs the build and only the named phases of 7 to 11 (while working on
 them; ``study_batched`` runs ``study`` first, whose dataset it is held
 to); it prints no result line.
 
@@ -2357,11 +2386,518 @@ def study_batched_idle(torch, tsb, data_dir, out_dir, names) -> dict:
     return out
 
 
-NEW_PHASES = ("study", "study_f64", "study_batched", "nigp", "recursive")
+# ---------------------------------------------------------------------------
+# phase 11: the planner's scoring path
+# ---------------------------------------------------------------------------
+PLANNER_COSTS = ("ergodic", "fourier", "sf_gain", "mf_gain", "sf_logdet",
+                 "mf_logdet")
+# B1 launches per scoring call by design: one lane-axis launch per
+# covariance block of the batch (a single path is a batch of one lane)
+PLANNER_B1 = {"ergodic": 0, "fourier": 0, "sf_gain": 2, "mf_gain": 4,
+              "sf_logdet": 3, "mf_logdet": 3}
+PLANNER_ITERS = 40  # the simulator's plan_iters (sim/explore.py:89)
+PLANNER_B = 150.0  # the planner benchmark's budget (bench.py:208-213)
+# the simulator's first tranche, min(B / BD, B) of SimConfig()
+# (sim/explore.py:343-345, 384-385): what its host replan is given
+PLANNER_TRANCHE = 15.0
+PLANNER_SEED = 0
+# paths drawn from a replan's graph (its nodes' path sets) and scored as
+# one batch: float32 against float64, B1's lanes checked and timed there
+PLANNER_CANDIDATES = 512
+# float32 against float64 on the candidate set: the max abs err over the
+# scores finite in float64 over the largest |score|
+PLANNER_RTOL = {"ergodic": 1e-4, "fourier": 1e-4, "sf_gain": 1e-2,
+                "mf_gain": 1e-2, "sf_logdet": 1e-2, "mf_logdet": 1e-2}
+
+
+def planner_setup(torch, dev) -> dict:
+    """The study's dataset (trajectory 0, vmn 0.2, field seed 0: N of about
+    705) through the port's filter and pipeline, the 3-fidelity MFGP and
+    the GP on it in float32 on the card, each with one short
+    ``optimize_restarts`` (2 lanes x 20 iterations), their float64 copies
+    on the card (the same hyperparameters), and the simulator's grids."""
+    from mfgp_tpu_torch.data.io import load_gp_dataset
+    from mfgp_tpu_torch.data.pipeline import (generate_estimates_batch,
+                                              run_pipeline)
+    from mfgp_tpu_torch.data.study import scripted_trajectory
+    from mfgp_tpu_torch.fields.wrbf import random_field
+    from mfgp_tpu_torch.metrics.eid import eid_grid
+    from mfgp_tpu_torch.models.gp import GP
+    from mfgp_tpu_torch.models.mfgp import MFGP
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    cfg = SimConfig(seed=0, vmn=0.2)
+    field = random_field(np.random.default_rng(1000), cfg.WS, cfg.max_depth,
+                         device=dev)
+    traj = scripted_trajectory(0, SimConfig(seed=0, vmn=0.0),
+                               duration=3600.0)
+    est = generate_estimates_batch([traj], cfg, seeds=[0], device=dev)[0]
+    out = tempfile.mkdtemp(prefix="mfgp_planner_")
+    try:
+        run_pipeline(traj, cfg, out_dir=out, traj_name="T0_0.2", field=field,
+                     est=est, field_rng=np.random.default_rng(0))
+        ds = load_gp_dataset(os.path.join(out, "GPDataSets",
+                                          f"GPData_{STUDY_PICK}.csv"))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    f32 = np.float32
+    Xs, ys = ds.fidelity_lists()
+    mf = MFGP.from_fidelity_lists([x.astype(f32) for x in Xs],
+                                  [y.astype(f32) for y in ys], device=dev,
+                                  jitter=1e-6)
+    gp = GP(ds.X_est.astype(f32), ds.y.astype(f32), jitter=1e-6, device=dev)
+    t0 = time.perf_counter()
+    mf.optimize_restarts(n_restarts=2, maxiter=20, tol=1e-3)
+    gp.optimize_restarts(n_restarts=2, maxiter=20, tol=1e-3)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    mf64 = MFGP(mf.X.double(), mf.fid, mf.y.double(), n_fidelities=3,
+                jitter=1e-6, device=dev)
+    mf64.set_param_array(mf.param_array)
+    gp64 = GP(gp.X.double(), gp.y.double(), jitter=1e-6, device=dev)
+    gp64.set_param_array(gp.param_array)
+    sim = SimConfig()
+    WS = [list(b) for b in sim.WS]
+    return {"cfg": sim, "field": field, "n": ds.n, "fit_s": fit_s,
+            "models": {torch.float32: (mf, gp), torch.float64: (mf64, gp64)},
+            "param_arrays": {"mf": mf.param_array.tolist(),
+                             "gp": gp.param_array.tolist()},
+            # the simulator's grids (sim/explore.py:133-142)
+            "grid": eid_grid(WS, sim.max_depth),
+            "ig_grid": eid_grid(WS, sim.max_depth, nums=(10, 6, 5)),
+            "fid_levels": sim.agent().fid_levels}
+
+
+def planner_eid(name: str, mf, gp, grid):
+    """The simulator's EID on the 2,000-point grid (sim/explore.py:185-197):
+    the MF model's for the ergodic and MF costs, the GP's for the SF
+    costs."""
+    from mfgp_tpu_torch.metrics.eid import expected_information_density
+
+    model = gp if name.startswith("sf") else mf
+    mu, var = model.predict(grid)
+    pa = model.param_array
+    prior = float(pa[[0, 4, 8, -1]].sum() if model is mf
+                  else pa[0] + pa[-1])
+    return expected_information_density(mu, var, prior)
+
+
+def planner_cost(name: str, setup: dict, dtype, eid, dev):
+    """One of the six costs as the simulator builds it
+    (sim/explore.py:199-215) on the models of ``dtype``: the ergodic costs
+    on the EID grid in that dtype, the log-det costs on the 300-point IG
+    grid."""
+    from mfgp_tpu_torch.planning import scoring as sc
+
+    mf, gp = setup["models"][dtype]
+    grid, ig, fl = setup["grid"], setup["ig_grid"], setup["fid_levels"]
+    erg = dict(device=dev, dtype=dtype)
+    bounds = np.asarray([[0.0, 10.0], [0.0, 20.0], [0.0, 10.0]])
+    return {"ergodic": lambda: sc.ErgodicCost(eid=eid, grid=grid, **erg),
+            "fourier": lambda: sc.FourierErgodicCost(
+                eid=eid, grid=grid, bounds=bounds, **erg),
+            "sf_gain": lambda: sc.SFInfoGainCost(gp),
+            "mf_gain": lambda: sc.MFInfoGainCost(mf, fl),
+            "sf_logdet": lambda: sc.BatchLogDetCost(gp, ig),
+            "mf_logdet": lambda: sc.MFBatchLogDetCost(mf, ig, fl)}[name]()
+
+
+class ScoreProbe:
+    """A cost as the planner sees it, recording each scoring call: batch
+    or single path, lanes, padded length, B1 launches and seconds (the
+    call returns host numpy, so its wall includes the device's work). It
+    also keeps the arguments of the first launch of B1's lane axis of each
+    kind (call kind, place in the call, shapes, symmetric, noise), so that
+    the replan's own launches can be held to their plain version after
+    it."""
+
+    def __init__(self, ck, cost):
+        self.ck, self.cost, self.calls, self.launches = ck, cost, [], {}
+
+    def _run(self, kind, fn, paths):
+        from mfgp_tpu_torch.planning.scoring import _bucket
+
+        ck, real, seen = self.ck, self.ck.ar1_cov_fused_lanes, []
+
+        def record(*args, **kw):
+            seen.append((args, kw))
+            return real(*args, **kw)
+
+        n0 = ck.LAUNCHES["ar1_cov_fused"]
+        ck.ar1_cov_fused_lanes = record
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        finally:
+            ck.ar1_cov_fused_lanes = real
+        self.calls.append({
+            "kind": kind, "lanes": len(paths),
+            "T": _bucket(max(p.shape[0] for p in paths)),
+            "b1": ck.LAUNCHES["ar1_cov_fused"] - n0,
+            "seconds": time.perf_counter() - t0})
+        for i, (args, kw) in enumerate(seen):
+            key = (kind, i, lane_launch_shape(ck, args, kw))
+            self.launches.setdefault(key, (args, kw))
+        return out
+
+    def batch(self, paths):
+        return self._run("batch", lambda: self.cost.batch(paths), paths)
+
+    def __call__(self, points):
+        return self._run("call", lambda: self.cost(points), [points])
+
+
+def planner_replan(torch, ck, name: str, setup: dict, dev,
+                   seed: int = PLANNER_SEED, B: float = PLANNER_B):
+    """One replan as the simulator makes it (sim/explore.py:384-416): the
+    EID, the cost, then ``RIGPlanner.plan`` at the simulator's settings
+    but the budget ``B`` (by default the planner benchmark's; the
+    simulator's first tranche is ``PLANNER_TRANCHE``) from its start
+    point, the WRBF field as the edges' environment; float32 on the card.
+    Returns (planner, best path, probe, eid, seconds by stage)."""
+    from mfgp_tpu_torch.planning.rig import RIGPlanner
+
+    cfg, field = setup["cfg"], setup["field"]
+    mf, gp = setup["models"][torch.float32]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eid = planner_eid(name, mf, gp, setup["grid"])
+    probe = ScoreProbe(ck, planner_cost(name, setup, torch.float32, eid,
+                                        dev))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    planner = RIGPlanner(
+        cfg=cfg.agent(), delta=cfg.step_size, B=B,
+        WS=np.asarray(cfg.WS, float), R=cfg.near_rad, Rd=cfg.Rd,
+        same_node_distance=cfg.same_node_distance, budget_cutoff=0.9,
+        max_iter=PLANNER_ITERS, seed=seed, cost=probe,
+        env=lambda pts: field.numpy(pts))
+    x0 = np.array([[0.05 * (cfg.WS[0][1] - cfg.WS[0][0])],
+                   [0.05 * (cfg.WS[1][1] - cfg.WS[1][0])]])
+    best = planner.plan(x0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return planner, best, probe, eid, {"eid_and_cost_s": t1 - t0,
+                                       "plan_s": t2 - t1,
+                                       "replan_s": t2 - t0}
+
+
+def planner_candidates(planner, count: int = PLANNER_CANDIDATES):
+    """``count`` paths of a replan's graph (its nodes' path sets: the
+    candidates the planner's DP extends), drawn with a fixed seed, as the
+    planner's scoring rows; and how many the graph holds."""
+    paths = [p for i in sorted(planner.V) for p in planner.V[i].path_list]
+    pick = np.random.default_rng(1).choice(len(paths),
+                                           min(count, len(paths)),
+                                           replace=False)
+    return [planner._path_points(paths[i]) for i in sorted(pick)], len(paths)
+
+
+def planner_lane_launches(ck, cost, paths) -> list:
+    """``cost.batch(paths)`` with the arguments of every launch of B1's
+    lane axis recorded, in order."""
+    probe = ScoreProbe(ck, cost)
+    probe.batch(paths)
+    return list(probe.launches.values())
+
+
+LANE_ARGS = ("X1", "fid1", "X2", "fid2", "variances", "lengthscales",
+             "rhos", "noise_diag", "kern")
+
+
+def lane_launch_shape(ck, args, kw) -> str:
+    """A launch of B1's lane axis as "(L, N, M) F=.. [sym] [+noise]"."""
+    a = dict(zip(LANE_ARGS, args), **kw)
+    A, B = a["X1"], a["X2"]
+    sym = ck.same_points(A, a["fid1"], B, a["fid2"])
+    return (f"({A.shape[0]}, {A.shape[1]}, {B.shape[1]}) "
+            f"F={a['variances'].shape[1]}" + (" sym" if sym else "")
+            + (" +noise" if a.get("noise_diag") is not None else ""))
+
+
+def lane_input_bytes(t) -> int:
+    """Bytes of a lane-axis input read once: a broadcast view (lane stride
+    0, one grid or training set for every lane) once in all, a per-lane
+    input once per lane."""
+    per_lane = t[0].numel() * t.element_size()
+    return per_lane * (1 if t.stride(0) == 0 else t.shape[0])
+
+
+def planner_lane_check(torch, ck, key: str, args, kw) -> dict:
+    """One recorded lane-axis launch held as ``b1_lane_checks`` holds the
+    study's: every lane bit-identical to a single-lane launch on its inputs
+    (with the symmetric half grid where the lane launch took it), a
+    symmetric launch bit-identical to its full grid, every lane within
+    1e-5 x max(1, largest entry) of the float64 plain version. Then timed
+    on CUDA events (the wrapper's call, and the kernel alone on inputs
+    prepped once) beside the plain version, with its bound (bytes: the
+    output written once, each input read once, a broadcast input once for
+    all lanes)."""
+    a = dict(zip(LANE_ARGS, args), **kw)
+    A, fa, B, fb = a["X1"], a["fid1"], a["X2"], a["fid2"]
+    v, ls, rho = a["variances"], a["lengthscales"], a["rhos"]
+    nz, kern = a.get("noise_diag"), a.get("kern", "rbf")
+    L, n, D = A.shape
+    m, F = B.shape[1], v.shape[1]
+    sym = ck.same_points(A, fa, B, fb)
+    got = ck.ar1_cov_fused_lanes(A, fa, B, fb, v, ls, rho, nz, kern)
+    full_same = None
+    if sym:
+        full = ck.ar1_cov_fused_lanes(A, fa, B.clone(), fb.clone(), v, ls,
+                                      rho, nz, kern)
+        full_same = torch.equal(got.view(torch.int32),
+                                full.view(torch.int32))
+        del full
+    differ, err, top = [], 0.0, 1.0
+    for l in range(L):
+        x, f = A[l].contiguous(), fa[l].contiguous()
+        if sym:
+            y, g = x, f
+        else:
+            y = x if B is A else B[l].contiguous()
+            g = fb[l].contiguous()
+        one = ck.ar1_cov_fused(x, f, y, g, v[l], ls[l], rho[l],
+                               None if nz is None else nz[l], kern)
+        if not torch.equal(got[l].view(torch.int32), one.view(torch.int32)):
+            differ.append(l)
+        ref = ck.ar1_cov_fused_plain(
+            A[l].double(), fa[l], B[l].double(), fb[l], v[l].double(),
+            ls[l].double(), rho[l].double(),
+            None if nz is None else nz[l].double(), kern)
+        err = max(err, max_err(got[l], ref))
+        top = max(top, float(ref.abs().max()))
+        del one, ref
+    shape = lane_launch_shape(ck, args, kw)
+    check(f"B1 planner lanes {key} {shape}",
+          not differ and full_same is not False and err <= 1e-5 * top,
+          f"lanes differing from single-lane launches: {differ[:8]}; "
+          f"symmetric = full grid: {full_same}; max abs err vs f64 "
+          f"{err:.3e} (<= 1e-5 x {top:.4g})")
+    B1_PATH_ERRS.append(err)
+
+    def lanes_call():
+        ck.ar1_cov_fused_lanes(A, fa, B, fb, v, ls, rho, nz, kern)
+
+    def plain_call():
+        ck.ar1_cov_fused_lanes_plain(A, fa, B, fb, v, ls, rho, nz, kern)
+
+    # the kernel alone, on inputs prepped once (the wrapper's call adds
+    # _prep's small launches and the output's allocation)
+    prepped = ck._prep_pair(A, fa, B, fb, v, ls, rho)
+    out = torch.empty((L, n, m), dtype=torch.float32, device=A.device)
+
+    def kernel_call():
+        ck._launch_ar1_cov(*prepped, nz, out, ck._KERN_IDS[kern])
+
+    k1 = cuda_ms(torch, lanes_call, reps=10)
+    k2 = cuda_ms(torch, lanes_call, reps=10)
+    kernel_ms = min(cuda_ms(torch, kernel_call, reps=10) for _ in range(2))
+    pl = cuda_ms(torch, plain_call, reps=1)
+    ms = min(k1, k2)
+    sides = (A, fa) if sym else (A, fa, B, fb)
+    nbytes = 4 * L * n * m + sum(lane_input_bytes(t) for t in (
+        *sides, v, ls, rho, *(() if nz is None else (nz,))))
+    evals = L * (n * (n + 1) / 2 if sym else n * m) * F
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = evals * (3 * D + 5) / FP32_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    return {"shape": shape, "max_abs_err": err, "ms": ms, "ms_runs": [k1, k2],
+            "kernel_ms": kernel_ms, "plain_ms": pl, "bytes": nbytes,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "share_of_bound": bound / ms,
+            "kernel_share_of_bound": bound / kernel_ms}
+
+
+def planner_grid_checks(torch, ck, setup, dev) -> None:
+    """The log-det costs' candidate-free blocks through B1's single-lane
+    wrapper: K(IG grid, train) and K(IG grid, IG grid), F=3 with the grid
+    at the highest fidelity (the MFGP) and F=1 (the GP), against float64
+    (``b1_path_check``)."""
+    from mfgp_tpu_torch.utils.device import points_like
+
+    mf, gp = setup["models"][torch.float32]
+    G = points_like(setup["ig_grid"], mf.X)
+    p, q = mf.params, gp.params
+    gfid = torch.full((G.shape[0],), 2, dtype=torch.long, device=dev)
+    z = torch.zeros(gp.X.shape[0], dtype=torch.long, device=dev)
+    zg = torch.zeros(G.shape[0], dtype=torch.long, device=dev)
+    one = (q.variance.reshape(1), q.lengthscales.reshape(1, -1),
+           q.variance.new_zeros(0))
+    for a in ((G, gfid, mf.X, mf.fid, p.variances, p.lengthscales, p.rhos),
+              (G, gfid, G, gfid, p.variances, p.lengthscales, p.rhos),
+              (G, zg, gp.X, z, *one), (G, zg, G, zg, *one)):
+        b1_path_check(torch, ck, "planner IG grid", *a)
+
+
+def planner_candidate_checks(torch, ck, name, cost32, eid, setup, cands,
+                             dev) -> dict:
+    """One cost on the candidate set: float32 on the card against the same
+    cost on the models' float64 copies on the card (its B1 launches the
+    design's), the float32 batch timed, B1's lane launches checked and
+    timed (``planner_lane_check``)."""
+    cost64 = planner_cost(name, setup, torch.float64, eid.double(), dev)
+    n0 = ck.LAUNCHES["ar1_cov_fused"]
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        s32 = cost32.batch(cands)
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    b1 = (ck.LAUNCHES["ar1_cov_fused"] - n0) / 2
+    t0 = time.perf_counter()
+    s64 = cost64.batch(cands)
+    wall64 = time.perf_counter() - t0
+    ok64 = np.isfinite(s64)
+    both = ok64 & np.isfinite(s32)
+    top = float(np.abs(s64[ok64]).max()) if ok64.any() else 0.0
+    err = float(np.abs(s32[both] - s64[both]).max()) if both.any() else 0.0
+    nonfinite32 = int((~np.isfinite(s32) & ok64).sum())
+    rtol = PLANNER_RTOL[name]
+    check(f"planner {name} f32 vs f64 on the card",
+          ok64.all() and err <= rtol * top and b1 == PLANNER_B1[name],
+          f"{len(cands)} candidates: max abs err {err:.3e} (<= {rtol:g} x "
+          f"{top:.4g}, the largest |score|) over {int(both.sum())} scores "
+          f"finite in both; non-finite: {nonfinite32} in float32, "
+          f"{int((~ok64).sum())} in float64; B1 launches per batch {b1:g} "
+          f"(design {PLANNER_B1[name]})")
+    lanes = {}
+    for i, (args, kw) in enumerate(planner_lane_launches(ck, cost32, cands)):
+        lanes[f"{name}_{i}"] = planner_lane_check(torch, ck,
+                                                  f"{name}_{i}", args, kw)
+    return {"lanes": len(cands),
+            "T": int(max(p.shape[0] for p in cands)),
+            "batch_s_runs": walls, "batch_f64_s": wall64,
+            "peak_gb": peak, "max_abs_err": err, "largest_score": top,
+            "nonfinite_f32": nonfinite32,
+            "nonfinite_f64": int((~ok64).sum()), "b1_launches": lanes}
+
+
+def replan_lane_checks(torch, ck, label: str, probe, per_call: int,
+                       times: dict) -> None:
+    """The lane-axis launches a replan's scoring calls made, the first of
+    each kind (``ScoreProbe.launches``), through ``planner_lane_check``;
+    their times go into ``times``. A replan that scored paths must have
+    left at least ``per_call`` kinds."""
+    for (kind, i, shape), (args, kw) in probe.launches.items():
+        key = f"{label}_{kind}{i}"
+        times[f"{key} {shape}"] = planner_lane_check(torch, ck, key, args, kw)
+    check(f"planner {label} launches checked",
+          len(probe.launches) >= (per_call if probe.calls else 0),
+          f"{len(probe.launches)} launch kinds of the replan held to "
+          f"single-lane launches and float64: "
+          f"{sorted(k[2] for k in probe.launches)}")
+    probe.launches.clear()
+
+
+def planner_phase(torch, ck, cov, dev) -> dict:
+    """Phase 11 (see the module docstring). Returns the launches of the six
+    replans, counted from 0 just before the first."""
+    from mfgp_tpu_torch import cli
+
+    setup = planner_setup(torch, dev)
+    mf, gp = setup["models"][torch.float32]
+    check("planner models on the card", all(
+        m.X.is_cuda and m.X.dtype == torch.float32 for m in (mf, gp)),
+        f"MFGP and GP at N={setup['n']} on {mf.X.device} in {mf.X.dtype}; "
+        f"short fits {setup['fit_s']:.1f} s; param_arrays "
+        f"{setup['param_arrays']}")
+
+    # the main path: one replan per cost, the launch counters from 0
+    runs = {}
+    ck.reset_launches()
+    for name in PLANNER_COSTS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = planner_replan(torch, ck, name, setup, dev)
+        runs[name] = out + (torch.cuda.max_memory_allocated() / 1e9,)
+    launches = dict(ck.LAUNCHES)
+    scoring_b1 = sum(c["b1"] for r in runs.values() for c in r[2].calls)
+    check("planner launches", launches["ar1_cov_fused"] > 0
+          and scoring_b1 == sum(PLANNER_B1[n] * len(r[2].calls)
+                                for n, r in runs.items()),
+          f"kernel launches over the six replans: {launches}; B1 in scoring "
+          f"calls {scoring_b1} (the design's count), the rest the EIDs' "
+          "cross-covariances and the log-det costs' grid blocks (B2 and B3 "
+          "are not on this path)")
+
+    # the replans' own lane launches, one of each kind per cost, against
+    # single-lane launches and float64
+    lane_times = {}
+    for name, r in runs.items():
+        replan_lane_checks(torch, ck, f"{name}_replan", r[2], PLANNER_B1[name],
+                           lane_times)
+
+    # the simulator's own budget: one replan per cost at its first tranche
+    tranche = {}
+    for name in PLANNER_COSTS:
+        planner, best, probe, _, secs = planner_replan(
+            torch, ck, name, setup, dev, B=PLANNER_TRANCHE)
+        b1 = sorted({c["b1"] for c in probe.calls})
+        replan_lane_checks(torch, ck, f"{name}_tranche", probe,
+                           PLANNER_B1[name], lane_times)
+        check(f"planner {name} replan at B={PLANNER_TRANCHE:g}",
+              best.segments is not None and bool(np.isfinite(best.info))
+              and (not probe.calls or b1 == [PLANNER_B1[name]]),
+              f"best path of {len(best.segments or ())} segments, info "
+              f"{best.info:.6g}; B1 launches per call {b1} (design "
+              f"{PLANNER_B1[name]}); stats {planner.stats}")
+        tranche[name] = {
+            **secs, "stats": planner.stats, "nodes": len(planner.V),
+            "scoring_calls": len(probe.calls),
+            "calls": [[c["kind"], c["lanes"], c["T"], c["b1"]]
+                      for c in probe.calls]}
+    emit("planner_tranche", B=PLANNER_TRANCHE, nvidia_smi=nvidia_smi(),
+         replans=tranche)
+
+    planner_grid_checks(torch, ck, setup, dev)
+    cands, n_graph = planner_candidates(runs["ergodic"][0])
+    for name, (planner, best, probe, eid, secs, peak) in runs.items():
+        calls = probe.calls
+        b1 = sorted({c["b1"] for c in calls})
+        check(f"planner {name} replan", best.segments is not None
+              and bool(np.isfinite(best.info)),
+              f"best path of {len(best.segments or ())} segments, info "
+              f"{best.info:.6g}, budget {best.budget:.4g} of {PLANNER_B}; "
+              f"stats {planner.stats}")
+        check(f"planner {name} B1 per scoring call",
+              not calls or b1 == [PLANNER_B1[name]],
+              f"B1 launches per call {b1} over {len(calls)} calls "
+              f"(design {PLANNER_B1[name]}: one lane-axis launch per "
+              "covariance block, not one per candidate)")
+        cand = planner_candidate_checks(torch, ck, name, probe.cost, eid,
+                                        setup, cands, dev)
+        lane_times.update(cand.pop("b1_launches"))
+        idle = device_idle_share(
+            torch, lambda: planner_replan(torch, ck, name, setup, dev))
+        emit("planner", cost=name, nvidia_smi=nvidia_smi(), **secs,
+             stats=planner.stats, nodes=len(planner.V),
+             best_info=float(best.info), best_budget=float(best.budget),
+             scoring_calls=len(calls),
+             batch_s=sum(c["seconds"] for c in calls if c["kind"] == "batch"),
+             call_s=sum(c["seconds"] for c in calls if c["kind"] == "call"),
+             calls=[[c["kind"], c["lanes"], c["T"], c["b1"]] for c in calls],
+             b1_per_call=b1, peak_gb=peak, candidates=cand,
+             graph_paths=n_graph, idle=idle)
+    emit("planner_b1_lanes", nvidia_smi=nvidia_smi(), times=lane_times)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["infogain-test"])
+    ig = json.loads(buf.getvalue())
+    check("planner infogain-test on the card", ig["rel_err"] < 1e-10,
+          f"{ig} (rel_err < 1e-10)")
+    emit("planner_infogain", device=str(dev), **ig)
+    return launches
+
+
+NEW_PHASES = ("study", "study_f64", "study_batched", "nigp", "recursive",
+              "planner")
 
 
 def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
-    """Phases 7 to 10 in turn (the batched study, 10, after the study's
+    """Phases 7 to 11 in turn (the batched study, 10, after the study's
     phases, whose dataset it compares with); returns each path's launches
     by phase."""
     launches = {}
@@ -2384,11 +2920,14 @@ def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
         launches["nigp"] = nigp_phase(torch, ck, cov, dev, problem)
     if "recursive" in only:
         launches["recursive"] = recursive_phase(torch, ck, cov, dev, problem)
+    torch.cuda.empty_cache()
+    if "planner" in only:
+        launches["planner"] = planner_phase(torch, ck, cov, dev)
     return launches
 
 
 def only_phases(names) -> int:
-    """``--only``: the build and the named phases of 7 to 10; no result
+    """``--only``: the build and the named phases of 7 to 11; no result
     line."""
     import torch
 

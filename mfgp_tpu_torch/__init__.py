@@ -18,13 +18,19 @@ models.nigp       the input-noise GP: alternating and native fits, posteriors
 models.mfgp_recursive  the recursive (per-level residual) multi-fidelity GP
 fields.wrbf       the WRBF field, the random-field draw, FieldSettings files
 estimation.kalman the Kalman steps and the batched trajectory filter
-utils.configs     ``KFConfig`` / ``SimConfig``; utils.device: the device rule
+utils.configs     ``KFConfig`` / ``SimConfig`` / ``ExperimentConfig``;
+                  utils.device: the device rule
+metrics           the ergodic KL and Fourier metrics, the EID, the
+                  closed-form information gains (a lane axis throughout)
+planning.scoring  the six path costs, a batch's candidates as lanes of B1
+planning.rig      the host RIG planner; planning.primitives its motion
+                  primitives (both NumPy)
 data.io           the reference's CSV / text artifacts (numpy only)
 data.aggregate    ``MSE_*.txt`` files to ``results.csv`` and mean metrics
 data.pipeline     trajectory -> KF estimates -> field measurements -> bins
 data.trainers     fit {MFGP, SFGP, SFGP-TP, NIGP}, RMSE / WMSE, artifacts
 data.study        the model-comparison study and the training-size study
-cli               ``python -m mfgp_tpu_torch.cli study ...`` and six more
+cli               ``python -m mfgp_tpu_torch.cli study ...`` and seven more
 
 Everything that builds tensors takes ``device``: the card by default, an
 error where there is no CUDA device, the CPU only when asked

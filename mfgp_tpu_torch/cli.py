@@ -8,13 +8,14 @@
   python -m mfgp_tpu_torch.cli trainers --data-dir D --field-dir F --out O
   python -m mfgp_tpu_torch.cli aggregate 'GPResults/MSE_*.txt' --out results.csv
   python -m mfgp_tpu_torch.cli study    --out D [--fit-mode device] ...
+  python -m mfgp_tpu_torch.cli infogain-test      # info-gain identity check
 
 Every command runs on the card and raises where there is no CUDA device,
 unless ``--cpu`` (before the command) asks for the CPU. Each prints one
 JSON document with the JAX package's keys on standard output; the trainers
 and the study also report, on standard error, how many WMSE metrics were
 redone in float64 (on the same device). The other commands of the JAX package
-(explore, mission, campaign, serve, plot, infogain-test) are not here yet.
+(explore, mission, campaign, serve, plot) are not here yet.
 """
 
 from __future__ import annotations
@@ -165,6 +166,36 @@ def cmd_study(args):
     print(json.dumps(rep, indent=1))
 
 
+def cmd_infogain_test(args):
+    """BASELINE config 4 sanity: the mutual-information identity
+    (reference/informationGainTest.py) as a quick numerical check, in
+    float64 on the chosen device."""
+    device = _device(args)
+    import torch
+
+    from mfgp_tpu_torch.metrics import info_gain as ig
+    from mfgp_tpu_torch.ops import kernels as k
+
+    rng = np.random.default_rng(args.seed)
+    X = torch.as_tensor(rng.uniform(0, 5, (30, 1)), device=device)
+    K = k.rbf(X, X, 2.0, [0.8])
+    sig_n = 0.1
+    exact = float(ig.exact_mutual_information(K, sig_n))
+    # sequential factorization: |K + s I| = prod_k v_k with v_k the noisy
+    # conditional variances -> MI = 0.5 sum log(v_k / s)
+    L = torch.linalg.cholesky(K + sig_n * torch.eye(K.shape[0],
+                                                    dtype=K.dtype,
+                                                    device=device))
+    seq = float(0.5 * torch.sum(torch.log(torch.diagonal(L) ** 2 / sig_n)))
+    # the reference's scorer accumulates log(1 + v_k/s) instead (documented
+    # overshoot, metrics/info_gain.py) — reported for comparison
+    ref_style = float(ig.sequential_gain_from_cov(
+        K, sig_n, first_self_conditioned=False, factor=0.5))
+    print(json.dumps({"exact": exact, "sequential": seq,
+                      "rel_err": abs(exact - seq) / abs(exact),
+                      "reference_style_score": ref_style}))
+
+
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="mfgp_tpu_torch",
@@ -201,6 +232,9 @@ def build_parser():
 
     p = sub.add_parser("aggregate"); p.set_defaults(fn=cmd_aggregate)
     p.add_argument("pattern"); p.add_argument("--out")
+
+    p = sub.add_parser("infogain-test"); p.set_defaults(fn=cmd_infogain_test)
+    p.add_argument("--seed", type=int, default=0)
 
     p = sub.add_parser("study"); p.set_defaults(fn=cmd_study)
     p.add_argument("--out", required=True)

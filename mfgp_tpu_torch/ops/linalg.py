@@ -34,7 +34,15 @@ def chol(K: torch.Tensor) -> torch.Tensor:
 
 def tri_solve(L: torch.Tensor, B: torch.Tensor,
               lower: bool = True) -> torch.Tensor:
-    """Solve ``L X = B`` for triangular L (B may be a vector)."""
+    """Solve ``L X = B`` for triangular L (B may be a vector). With one
+    factor L (N, N) and lanes of right-hand sides B (..., N, K), the lanes'
+    columns go side by side as one wide system, so L is never copied per
+    lane."""
+    if L.ndim == 2 and B.ndim > 2:
+        lead, (N, K) = B.shape[:-2], B.shape[-2:]
+        wide = torch.linalg.solve_triangular(
+            L, B.movedim(-2, 0).reshape(N, -1), upper=not lower)
+        return wide.reshape((N,) + lead + (K,)).movedim(0, -2)
     vec = B.ndim == 1
     X = torch.linalg.solve_triangular(L, B[:, None] if vec else B,
                                       upper=not lower)

@@ -650,3 +650,114 @@ def test_ar1_cov_fused_lanes(dev, gen, kernel, L, N, M, F):
                                      None if nz is None else nz[l].double(),
                                      kern=kernel)
         assert float((K[l].double() - ref).abs().max()) <= 1e-5
+
+
+# the planner's B1 lane launches: the candidates' path points per lane on
+# one side, on the other a training set or grid shared by every lane as a
+# broadcast view, the same path points (Kcc, the log-det C with noise), or
+# the same points under other labels (Kpc)
+PLANNER_LANE_CASES = ["path_x_train", "train_x_path", "Kcc", "Kpc",
+                      "C_noise"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("case", PLANNER_LANE_CASES)
+def test_ar1_cov_lanes_planner_shapes(dev, gen, kernel, case):
+    """B1's lane axis at the planner's launches: one launch for the L
+    candidates, each lane bit for bit the single-lane launch on its inputs
+    (the symmetric half grid where both sides are the same tensors, the
+    full grid for Kpc, whose labels differ), within 1e-5 x max(1, largest
+    entry) of the float64 plain version."""
+    L, T, N, F = 7, 29, 131, 3
+    t32 = dict(dtype=torch.float32, device=dev)
+    P = torch.as_tensor(gen.uniform(0, 10, (L, T, 3)), **t32)
+    fid_c = torch.as_tensor(gen.integers(0, F, (L, T)), device=dev)
+    fid_p = torch.zeros_like(fid_c)
+    X = torch.as_tensor(gen.uniform(0, 10, (N, 3)), **t32)
+    fX = torch.as_tensor(gen.integers(0, F, N), device=dev)
+    Xb, fXb = X.expand(L, N, 3), fX.expand(L, N)
+    v, ls, rho = _t(dev, gen.uniform(0.5, 2.0, F),
+                    gen.uniform(1.0, 4.0, (F, 3)), gen.uniform(0.7, 1.2, F - 1))
+    nz = None
+    A, fa, B, fb = {"path_x_train": (P, fid_c, Xb, fXb),
+                    "train_x_path": (Xb, fXb, P, fid_c),
+                    "Kcc": (P, fid_c, P, fid_c),
+                    "Kpc": (P, fid_p, P, fid_c),
+                    "C_noise": (P, fid_c, P, fid_c)}[case]
+    if case == "C_noise":
+        nz = torch.as_tensor(gen.uniform(0.01, 0.1, (L, T)), **t32)
+    sym = case in ("Kcc", "C_noise")
+    assert ck.same_points(A, fa, B, fb) == sym
+    args = (v.expand(L, F), ls.expand(L, F, 3), rho.expand(L, F - 1))
+    before = ck.LAUNCHES["ar1_cov_fused"]
+    K = tcov.ar1_cov_lanes(*args, A, fa, B, fb, kernel, nz)
+    assert ck.LAUNCHES["ar1_cov_fused"] == before + 1
+    for l in range(L):
+        a, f = A[l].contiguous(), fa[l].contiguous()
+        b, g = (a, f) if sym else (a if B is A else B[l].contiguous(),
+                                   fb[l].contiguous())
+        one = ck.ar1_cov_fused(a, f, b, g, v, ls, rho,
+                               None if nz is None else nz[l], kernel)
+        assert torch.equal(K[l].view(torch.int32), one.view(torch.int32))
+        ref = ck.ar1_cov_fused_plain(*_f64(A[l], fa[l], B[l], fb[l], v, ls,
+                                           rho),
+                                     None if nz is None else nz[l].double(),
+                                     kern=kernel)
+        top = max(1.0, float(ref.abs().max()))
+        assert float((K[l].double() - ref).abs().max()) <= 1e-5 * top
+
+
+PLANNER_B1 = {"ergodic": 0, "fourier": 0, "sf_gain": 2, "mf_gain": 4,
+              "sf_logdet": 3, "mf_logdet": 3}
+
+
+@pytest.mark.parametrize("name", list(PLANNER_B1))
+def test_cost_batch_float32_vs_float64_on_card(dev, gen, name):
+    """Each cost's ``batch`` on a float32 model on the card against the
+    same cost on its float64 copy: B1's lane axis once per covariance block
+    per batch (not once per candidate), the float32 scores within 1e-4
+    (ergodic) or 1e-2 (information gain) of the largest float64 score."""
+    from mfgp_tpu_torch.planning import scoring as sc
+
+    N, G = 90, 60
+    X = gen.uniform([0, 0, 0], [10, 20, 10], (N, 3))
+    fid = gen.integers(0, 3, N)
+    y = np.sin(0.4 * X[:, 0]) + np.cos(0.2 * X[:, 1]) + 0.05 * gen.normal(
+        size=N)
+    grid = gen.uniform([0, 0, 0], [10, 20, 10], (G, 3))
+    eid = gen.uniform(0, 1, G)
+    eid /= eid.sum()
+    paths = []
+    for n in gen.integers(3, 30, 40):
+        xyz = gen.uniform([0, 0, 0], [10, 20, 10], (n, 3))
+        paths.append(np.column_stack([xyz, np.cumsum(gen.uniform(1, 5, n)),
+                                      np.sort(gen.uniform(0, 8, n))]))
+    mfv = np.array([1.4, 3.0, 4.0, 2.5, 0.8, 2.0, 3.5, 2.0, 0.5, 2.5, 3.0,
+                    1.5, 1.0, 1.0, 0.04, 0.02, 0.01])
+    scores, b1 = {}, None
+    for dtype in (torch.float32, torch.float64):
+        Xt = torch.as_tensor(X, dtype=dtype, device=dev)
+        yt = torch.as_tensor(y, dtype=dtype, device=dev)
+        mf = tm.MFGP(Xt, torch.as_tensor(fid, device=dev), yt, jitter=1e-6)
+        mf.set_param_array(mfv)
+        gp = tg.GP(Xt, yt, jitter=1e-6)
+        gp.set_param_array(np.array([1.3, 3.0, 4.0, 2.5, 0.03]))
+        kw = dict(device=dev, dtype=dtype)
+        bounds = np.array([[0, 10], [0, 20], [0, 10]], float)
+        cost = {"ergodic": lambda: sc.ErgodicCost(eid, grid, **kw),
+                "fourier": lambda: sc.FourierErgodicCost(eid, grid, bounds,
+                                                         **kw),
+                "sf_gain": lambda: sc.SFInfoGainCost(gp),
+                "mf_gain": lambda: sc.MFInfoGainCost(mf, (0.25, 2.25, 6.25)),
+                "sf_logdet": lambda: sc.BatchLogDetCost(gp, grid),
+                "mf_logdet": lambda: sc.MFBatchLogDetCost(
+                    mf, grid, (0.25, 2.25, 6.25))}[name]()
+        before = ck.LAUNCHES["ar1_cov_fused"]
+        scores[dtype] = cost.batch(paths)
+        if dtype == torch.float32:
+            b1 = ck.LAUNCHES["ar1_cov_fused"] - before
+    assert b1 == PLANNER_B1[name]
+    s32, s64 = scores[torch.float32], scores[torch.float64]
+    assert np.isfinite(s64).all() and np.isfinite(s32).all()
+    rtol = 1e-4 if name in ("ergodic", "fourier") else 1e-2
+    assert np.abs(s32 - s64).max() <= rtol * np.abs(s64).max()

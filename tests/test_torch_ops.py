@@ -96,6 +96,24 @@ def test_cholesky_and_solves(spd):
           jla.diag_add(Kj, jnp.asarray(d)))
 
 
+@pytest.mark.parametrize("lower", [True, False])
+def test_tri_solve_one_factor_many_lanes(spd, rng, lower):
+    """One factor (N, N) against lanes of right-hand sides (3, 2, N, K):
+    each lane the JAX package's solve of that lane."""
+    K = spd[0]
+    N = K.shape[0]
+    B = rng.normal(size=(3, 2, N, 5))
+    (Kj, Kt), (Bj, Bt) = both(K, B)
+    Lj, Lt = jla.chol(Kj), tla.chol(Kt)
+    if not lower:
+        Lj, Lt = Lj.T, Lt.T
+    got = tla.tri_solve(Lt, Bt, lower=lower)
+    assert got.shape == Bt.shape
+    for i in range(3):
+        for k in range(2):
+            close(got[i, k], jla.tri_solve(Lj, Bj[i, k], lower=lower))
+
+
 def test_chol_not_positive_definite(spd):
     """A matrix that is not positive definite: JAX's chol gives NaN in the
     lower triangle and zeros above it, without an exception; so does the
@@ -220,14 +238,20 @@ def test_cuda_gate_on_cpu():
 
 
 def test_port_imports_without_jax_or_triton():
-    """The port never imports jax (nor triton): checked in a fresh
-    interpreter that imports every module of the package."""
+    """The port never imports jax (nor triton, nor the JAX package):
+    checked in a fresh interpreter that imports the models, ops, metrics,
+    planning, configuration and command-line modules."""
     code = (
         "import sys\n"
         "import mfgp_tpu_torch\n"
         "from mfgp_tpu_torch.models import gp, mfgp\n"
         "from mfgp_tpu_torch.ops import build, covariance, cuda_kernels, "
         "kernels, linalg, optimize\n"
+        "from mfgp_tpu_torch import cli, metrics, planning\n"
+        "from mfgp_tpu_torch.metrics import eid, ergodic, fourier, "
+        "info_gain\n"
+        "from mfgp_tpu_torch.planning import primitives, rig, scoring\n"
+        "from mfgp_tpu_torch.utils import configs\n"
         "bad = [m for m in ('jax', 'triton', 'mfgp_tpu') if m in "
         "sys.modules]\n"
         "assert not bad, bad\n")

@@ -259,8 +259,7 @@ def test_configs_match():
         if n != "kf":
             assert getattr(ct, n) == getattr(cj, n)
     assert dataclasses.asdict(ct.kf) == dataclasses.asdict(cj.kf)
-    with pytest.raises(NotImplementedError, match="planning.primitives"):
-        ct.agent()
+    assert dataclasses.asdict(ct.agent()) == dataclasses.asdict(cj.agent())
 
 
 def test_io_artifacts_byte_for_byte(tmp_path, rng):

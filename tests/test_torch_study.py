@@ -386,7 +386,7 @@ def keys(doc):
 
 
 COMMANDS = ["sfgp", "nigp", "mfgp", "pipeline", "trainers", "aggregate",
-            "study"]
+            "study", "infogain-test"]
 
 
 @pytest.mark.parametrize("cmd", COMMANDS)
@@ -411,6 +411,7 @@ def test_cli_commands(cmd, dataset, short_fits, tmp_path, capsys):
                                 os.path.join(o, "results.csv")],
         "study": lambda o: ["study", "--out", o, "--trajectories", "1",
                             "--vmn", "0.1", "--duration", "100"],
+        "infogain-test": lambda o: ["infogain-test", "--seed", "2"],
     }[cmd]
     if cmd == "aggregate":
         for T in range(2):
@@ -432,6 +433,9 @@ def test_cli_commands(cmd, dataset, short_fits, tmp_path, capsys):
         assert got == ref
     elif cmd == "aggregate":
         assert got == ref
+    elif cmd == "infogain-test":
+        close([got[k] for k in sorted(ref)], [ref[k] for k in sorted(ref)],
+              1e-12)
 
 
 def test_cli_surface(capsys):
