@@ -121,6 +121,38 @@
    scoring calls, peak memory and the idle share over one replan
    (``torch.profiler``).
 
+12. Explore: the closed loop through the port's command line,
+   ``cli.main(["explore", ...])`` at its defaults, the simulator's own
+   budget (``--budget 150 --bd 10 --plan-iters 40 --seed 0``: ten
+   replans of a 15-unit tranche), float32 on the card, for MFEGP, SFEGP,
+   MFGP and SFGP, then MFGP with ``--info-cost batch`` and SFEGP with
+   ``--ergodic-metric fourier`` (all six path costs), with the launch
+   counters from 0. Each run is held to: at least one replan and no more
+   than the budget, fidelity levels in {1, 2, 3} and 13-wide telemetry,
+   the models on the card in float32, B1 launched in every replan's refit
+   and EID, every scoring call at the design's count (4 / 2 / 3 / 0, as
+   phase 11), the first lane-axis launch of each kind bit for bit against
+   single-lane launches and within 1e-5 x max(1, largest entry) of
+   float64, every artifact written (``plannedTraj{n}``, ``EID{n}`` whose
+   density sums to 1 within 1e-5, ``replans.csv``), a finite final RMSE
+   below 3.0 (the JAX test's bar), and no fit failure swallowed but
+   numerical ones (``ExploreProbe``). Then: B1 at the closed loop's
+   shapes against float64 and timed; one flight's filter eager against
+   one CUDA graph; MFEGP in float64 on the card (the yardstick: the
+   float32 RMSE within 2x of it); MFGP with frozen hyperparameters in
+   float64 (later replans take ``extend``, whose posterior equals a
+   recondition within 1e-6); MFEGP stopped after replan 2 with a
+   checkpoint and resumed (the same replans, rows and budget as the
+   uninterrupted run within 1e-6; replan 2 alone under the profiler);
+   MFEGP flying through the robot runtime, cut to 3 replans (tracking
+   RMSE > 0.01, flown budget > 0, the runtime's files written), and the
+   runtime's observer step on the card eager against its CUDA graph.
+   Prints per run the wall, per replan the seconds of each stage (EID,
+   plan, flight, fit) and B1's launches there, evaluations per fit, peak
+   memory, scoring calls, and the idle share over one whole run (the
+   Fourier run, traced) and over one replan; for the dynamic flight the
+   ticks, microseconds per tick and the runtime's share of a replan.
+
 Every phase prints one JSON line (the fit phase one per part). A failed
 build or launch raises; a failed check is reported and the script exits 1
 after the last phase. The last line, on success only, is
@@ -128,9 +160,9 @@ after the last phase. The last line, on success only, is
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner
+    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore
 
-runs the build and only the named phases of 7 to 11 (while working on
+runs the build and only the named phases of 7 to 12 (while working on
 them; ``study_batched`` runs ``study`` first, whose dataset it is held
 to); it prints no result line.
 
@@ -2892,12 +2924,471 @@ def planner_phase(torch, ck, cov, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the closed loop (cli explore)
+# ---------------------------------------------------------------------------
+# the CLI's defaults, the simulator's own budget and cadence
+# (reference/exploreSimSettings.py:199, mfgp_tpu/cli.py:452-459)
+EXPLORE_B, EXPLORE_BD, EXPLORE_ITERS = 150.0, 10, 40
+EXPLORE_ARGS = ["--budget", "150", "--bd", "10", "--plan-iters", "40",
+                "--seed", "0"]
+# (label, variant flags, the cost its replans score with)
+EXPLORE_RUNS = (
+    ("MFEGP", ["--variant", "MFEGP"], "ergodic"),
+    ("SFEGP", ["--variant", "SFEGP"], "ergodic"),
+    ("MFGP", ["--variant", "MFGP"], "mf_gain"),
+    ("SFGP", ["--variant", "SFGP"], "sf_gain"),
+    ("MFGP-batch", ["--variant", "MFGP", "--info-cost", "batch"],
+     "mf_logdet"),
+    ("SFEGP-fourier", ["--variant", "SFEGP", "--ergodic-metric", "fourier"],
+     "fourier"),
+)
+# the main-path run traced whole by torch.profiler (its times carry the
+# profiler's cost; the other five runs are not traced)
+EXPLORE_PROFILED = "SFEGP-fourier"
+EXPLORE_RMSE_BAR = 3.0  # the JAX test's bar (tests/test_sim_cli.py:34-37)
+EXPLORE_RESUME_AFTER = 2
+# the one cut: dynamic flight's depth (the CLI has no max_replans flag)
+EXPLORE_DYNAMIC_REPLANS = 3
+EXPLORE_OBSERVER_CALLS = 2000
+
+
+class ExploreProbe:
+    """Records closed-loop runs as the CLI drives them, by wrapping
+    ``ExplorationSim``'s stages, ``RIGPlanner.plan``, the models'
+    ``optimize`` and the scipy driver at class or module level: per replan
+    the seconds of each stage (EID, plan, flight, fit) on a
+    CUDA-synchronised host clock with B1's launches in each, every cost in
+    a ``ScoreProbe``, the evaluations of each fit, the exceptions a fit
+    raised and ``_fit`` swallowed, and each run's sim, result and wall.
+    ``restore`` puts everything back; the package is unchanged."""
+
+    STAGES = ("eid", "plan", "fly", "fit")
+
+    def __init__(self, torch, ck, explore_mod, rig_mod, model_mods):
+        self.torch, self.ck = torch, ck
+        self.numerical = explore_mod.NUMERICAL_FAILURES
+        self.saved, self.runs, self.cur = [], [], None
+        self._raised = []
+        Sim = explore_mod.ExplorationSim
+        self._wrap(Sim, "run", self._run)
+        for name, stage in (("_eid", "eid"), ("_fly", "fly"),
+                            ("_fly_dynamic", "fly"), ("_fit", "fit")):
+            self._wrap(Sim, name, self._stage(stage))
+        self._wrap(Sim, "_fit", self._swallowed)
+        self._wrap(Sim, "_make_cost", self._cost)
+        self._wrap(rig_mod.RIGPlanner, "plan", self._stage("plan"))
+        for mod in model_mods:
+            self._wrap(mod, "scipy_lbfgsb", self._scipy)
+            cls = getattr(mod, "MFGP", None) or mod.GP
+            self._wrap(cls, "optimize", self._optimize)
+
+    def restore(self):
+        for obj, name, orig in reversed(self.saved):
+            setattr(obj, name, orig)
+
+    def _wrap(self, obj, name, make):
+        orig = getattr(obj, name)
+        self.saved.append((obj, name, orig))
+        setattr(obj, name, make(orig))
+
+    def _b1(self) -> int:
+        return self.ck.LAUNCHES["ar1_cov_fused"]
+
+    def _run(self, orig):
+        def run(sim, *a, **kw):
+            outer, self.cur = self.cur, {
+                "sim": sim, "probes": [], "evals": [], "swallowed": [],
+                **{s: [] for s in self.STAGES}}
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                res = orig(sim, *a, **kw)
+                self.torch.cuda.synchronize()
+                self.cur.update(result=res, wall_s=time.perf_counter() - t0)
+                self.runs.append(self.cur)
+            finally:
+                self.cur = outer
+            return res
+        return run
+
+    def _stage(self, stage):
+        def make(orig):
+            def run(obj, *a, **kw):
+                self.torch.cuda.synchronize()
+                b1, t0 = self._b1(), time.perf_counter()
+                out = orig(obj, *a, **kw)
+                self.torch.cuda.synchronize()
+                self.cur[stage].append((time.perf_counter() - t0,
+                                        self._b1() - b1))
+                return out
+            return run
+        return make
+
+    def _cost(self, orig):
+        def run(sim, model, eid):
+            probe = ScoreProbe(self.ck, orig(sim, model, eid))
+            self.cur["probes"].append(probe)
+            return probe
+        return run
+
+    def _scipy(self, orig):
+        def run(*a, **kw):
+            x, f, n = orig(*a, **kw)
+            self.cur["evals"].append(n)
+            return x, f, n
+        return run
+
+    def _optimize(self, orig):
+        def run(model, *a, **kw):
+            try:
+                return orig(model, *a, **kw)
+            except BaseException as e:
+                self._raised.append(e)
+                raise
+        return run
+
+    def _swallowed(self, orig):
+        """``_fit``: what its models' ``optimize`` raised while it returned
+        normally was swallowed; each is recorded with whether it is one of
+        the sim's numerical failures."""
+        def run(sim, model):
+            self._raised = []
+            out = orig(sim, model)
+            self.cur["swallowed"].extend(
+                (type(e).__name__, isinstance(e, self.numerical))
+                for e in self._raised)
+            return out
+        return run
+
+
+def explore_stage_table(rec) -> dict:
+    """Seconds and B1 launches per stage of each replan of a run (the
+    model update's seconds are the sim's own ``fit_seconds``, which cover
+    the model's construction; a replan that took ``extend`` has no fit)."""
+    res = rec["result"]
+    return {"eid_s": [s for s, _ in rec["eid"]],
+            "plan_s": [s for s, _ in rec["plan"]],
+            "fly_s": [s for s, _ in rec["fly"]],
+            "update_s": [r.fit_seconds for r in res.replans],
+            "fit_s": [s for s, _ in rec["fit"]],
+            "b1_eid": [n for _, n in rec["eid"]],
+            "b1_fit": [n for _, n in rec["fit"]],
+            "evaluations_per_fit": rec["evals"],
+            "fit_modes": [r.fit_mode for r in res.replans],
+            "n_train": int(res.gp_data.data.shape[0]),
+            "path_points": [int(r.path_points.shape[0])
+                            for r in res.replans]}
+
+
+def explore_run_checks(torch, label: str, rec, cost: str, out: str,
+                       doc: dict) -> None:
+    """The holds on one main-path run (see the module docstring)."""
+    res = rec["result"]
+    n = len(res.replans)
+    levels = set(np.unique(res.gp_data.col("fidLev")).astype(int).tolist())
+    check(f"explore {label} run",
+          n >= 1 and res.budget_used <= EXPLORE_B + 1e-9
+          and levels and levels <= {1, 2, 3}
+          and res.estimates.shape[1] == 13
+          and doc["replans"] == n and doc["budget_used"] == res.budget_used,
+          f"{n} replans, budget used {res.budget_used:.6g} (<= "
+          f"{EXPLORE_B:g}), fidelity levels {sorted(levels)}, telemetry "
+          f"{res.estimates.shape}, {res.gp_data.data.shape[0]} rows; the "
+          f"CLI's JSON {doc}")
+    m = res.model
+    check(f"explore {label} models on the card in float32",
+          m.X.is_cuda and m.X.dtype == torch.float32
+          and rec["sim"].dtype == torch.float32,
+          f"final model {type(m).__name__} N={m.X.shape[0]} on {m.X.device} "
+          f"in {m.X.dtype}")
+    b1_eid = [k for _, k in rec["eid"]]
+    b1_fit = [k for _, k in rec["fit"]]
+    check(f"explore {label} B1 in every refit and EID",
+          len(b1_eid) >= n and min(b1_eid) >= 1 and b1_fit
+          and min(b1_fit) >= 1,
+          f"B1 launches per EID {b1_eid}, per refit {b1_fit} (every "
+          "replan's EID and refit through the kernel)")
+    calls = [c for p in rec["probes"] for c in p.calls]
+    per_call = sorted({c["b1"] for c in calls})
+    check(f"explore {label} B1 per scoring call",
+          not calls or per_call == [PLANNER_B1[cost]],
+          f"{len(calls)} scoring calls over {len(rec['probes'])} replans, "
+          f"B1 launches per call {per_call} (design {PLANNER_B1[cost]}: "
+          "one lane-axis launch per covariance block)")
+    swallowed = rec["swallowed"]
+    check(f"explore {label} no fit failure swallowed but numerical ones",
+          all(num for _, num in swallowed),
+          f"{len(swallowed)} fit exceptions swallowed: {swallowed}")
+    files = set(os.listdir(out))
+    eid_sums = []
+    for k in range(n):
+        eid = np.loadtxt(os.path.join(out, f"EID{k}.csv"), delimiter=",")
+        eid_sums.append(float(eid[:, 3].sum()))
+    with open(os.path.join(out, "replans.csv")) as f:
+        rows = f.read().splitlines()
+    check(f"explore {label} artifacts",
+          all(f"plannedTraj{k}.csv" in files for k in range(n))
+          and all(abs(s - 1.0) <= 1e-5 for s in eid_sums)
+          and len(rows) == 1 + n and rows[0].startswith("planNum,"),
+          f"plannedTraj/EID for {n} replans, EID densities summing to "
+          f"{min(eid_sums):.7f}..{max(eid_sums):.7f} (1 within 1e-5), "
+          f"replans.csv {len(rows) - 1} rows")
+    check(f"explore {label} RMSE", res.rmse is not None
+          and bool(np.isfinite(res.rmse)) and res.rmse < EXPLORE_RMSE_BAR,
+          f"final RMSE {res.rmse} (finite, < {EXPLORE_RMSE_BAR})")
+
+
+def explore_filter_times(torch, kf_model, path) -> dict:
+    """The filter on one flown path (as ``_fly`` gives it): eagerly (what
+    the sim runs) and as one CUDA graph of the whole path (the default
+    ``graph_steps`` of 128 covers it: one capture per call), twice each,
+    seconds on a synchronised host clock."""
+    from mfgp_tpu_torch.estimation.kalman import filter_trajectory
+
+    t, xyz = path[:, 3], path[:, :3]
+    keep = np.concatenate([[True], np.diff(t) > 0])
+    t, xyz = t[keep], xyz[keep]
+    noise = np.random.default_rng(0).standard_normal((t.shape[0] - 1, 6))
+    secs = {"eager": [], "graph_128": []}
+    outs = {}
+    for name, steps in (("eager", 0), ("graph_128", None), ("graph_128", None),
+                        ("eager", 0)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = filter_trajectory(kf_model, t, xyz, noise=noise,
+                                       graph_steps=steps)
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+    diff = max(max_err(outs["eager"][k], outs["graph_128"][k])
+               for k in ("xh", "sig", "err"))
+    return {"steps": int(t.shape[0] - 1), "seconds": secs,
+            "max_abs_diff": diff}
+
+
+def explore_observer_times(torch, dev) -> dict:
+    """The runtime's observer step on the card, eager and as its CUDA
+    graph, ``EXPLORE_OBSERVER_CALLS`` calls each on the same changing
+    inputs (each call copies in, runs, copies out and synchronises, as a
+    tick does): microseconds per call, and the largest difference between
+    the two."""
+    from mfgp_tpu_torch.estimation.observers import GliderParams
+    from mfgp_tpu_torch.hw.runtime import ObserverStep
+
+    rng = np.random.default_rng(3)
+    params = GliderParams(lp=0.61, bc=0.55)
+    args = [(*rng.uniform(-0.5, 0.5, 3), rng.normal(0, 0.05, 3),
+             rng.normal(0, 0.1, 3), *rng.uniform(0, 10, 2),
+             rng.uniform(0, 1), rng.uniform(-0.5, 0.5))
+            for _ in range(EXPLORE_OBSERVER_CALLS)]
+    out, us = {}, {}
+    for name, graph in (("graph", True), ("eager", False)):
+        step = ObserverStep(params, dev, graph=graph)
+        step(*args[0])  # the graph's capture, the eager path's warm-up
+        t0 = time.perf_counter()
+        out[name] = [step(*a) for a in args]
+        us[name] = (time.perf_counter() - t0) / len(args) * 1e6
+    diff = max(float(np.abs(x - y).max()) for a, b in zip(out["graph"],
+                                                            out["eager"])
+               for x, y in zip(a, b))
+    check("explore observer graph = eager", diff <= 1e-12,
+          f"{len(args)} observer steps on the card: graph against eager max "
+          f"abs difference {diff:.3e} (<= 1e-12)")
+    return {"us_per_call": us, "calls": len(args), "max_abs_diff": diff}
+
+
+def explore_phase(torch, ck, cov, dev) -> dict:
+    """Phase 12 (see the module docstring). Returns the launches of the
+    six main-path runs, counted from 0 just before the first."""
+    from mfgp_tpu_torch import cli
+    from mfgp_tpu_torch.models import gp as gp_mod
+    from mfgp_tpu_torch.models import mfgp as mfgp_mod
+    from mfgp_tpu_torch.planning import rig as rig_mod
+    from mfgp_tpu_torch.sim import explore as ex
+    from mfgp_tpu_torch.utils.configs import ExperimentConfig
+
+    probe = ExploreProbe(torch, ck, ex, rig_mod, (gp_mod, mfgp_mod))
+    base = tempfile.mkdtemp(prefix="mfgp_explore_")
+    mfegp = dict(multi_fidelity=True, ergodic=True, B=EXPLORE_B,
+                 BD=EXPLORE_BD)
+    iters = EXPLORE_ITERS
+    try:
+        # the main path: six CLI runs, the launch counters from 0
+        runs, idle_run = {}, None
+        ck.reset_launches()
+        for label, flags, cost in EXPLORE_RUNS:
+            out = os.path.join(base, label)
+            argv = ["explore", *flags, *EXPLORE_ARGS, "--out", out]
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with contextlib.redirect_stdout(buf):
+                if label == EXPLORE_PROFILED:
+                    idle_run = device_idle_share(torch,
+                                                 lambda: cli.main(argv))
+                else:
+                    cli.main(argv)
+            rec = probe.runs[-1]
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            runs[label] = (rec, cost, out,
+                           json.loads(buf.getvalue().strip().splitlines()[-1]))
+        launches = dict(ck.LAUNCHES)
+        check("explore launches", launches["ar1_cov_fused"] > 0,
+              f"kernel launches over the six runs: {launches} (B2 and B3 "
+              "are not on this path: predict is not predict_fused, and the "
+              "fits are scipy on the autodiff NLML)")
+        lane_times = {}
+        for label, (rec, cost, out, doc) in runs.items():
+            explore_run_checks(torch, label, rec, cost, out, doc)
+            first = next((p for p in rec["probes"] if p.calls), None)
+            if first is not None:
+                replan_lane_checks(torch, ck, f"explore_{label}", first,
+                                   PLANNER_B1[cost], lane_times)
+            res = rec["result"]
+            emit("explore", run=label, nvidia_smi=nvidia_smi(),
+                 wall_s=rec["wall_s"], replans=len(res.replans),
+                 budget_used=res.budget_used, rmse=res.rmse,
+                 peak_gb=rec["peak_gb"], stages=explore_stage_table(rec),
+                 scoring_calls=sum(len(p.calls) for p in rec["probes"]),
+                 scoring_s=sum(c["seconds"] for p in rec["probes"]
+                               for c in p.calls),
+                 profiled=label == EXPLORE_PROFILED,
+                 idle=idle_run if label == EXPLORE_PROFILED else None)
+        emit("explore_b1_lanes", nvidia_smi=nvidia_smi(), times=lane_times)
+        mf_rec = runs["MFEGP"][0]
+        n_mf = int(mf_rec["result"].model.X.shape[0])
+        emit("explore_b1", nvidia_smi=nvidia_smi(), N=n_mf,
+             times=study_b1_times(torch, ck, dev, n_mf, 2000))
+
+        # the flight's filter: eager (what _fly runs) against one graph
+        flight = explore_filter_times(
+            torch, mf_rec["sim"].kf_model,
+            mf_rec["result"].replans[-1].path_points)
+        fly_s = [s for s, _ in mf_rec["fly"]]
+        check("explore filter graph = eager", flight["max_abs_diff"] <= 1e-9,
+              f"one flight of {flight['steps']} steps: eager "
+              f"{flight['seconds']['eager']} s, one graph "
+              f"{flight['seconds']['graph_128']} s; max abs difference "
+              f"{flight['max_abs_diff']:.3e} (<= 1e-9)")
+        emit("explore_fly", nvidia_smi=nvidia_smi(), filter=flight,
+             fly_s_per_replan=fly_s)
+
+        # the yardstick: MFEGP in float64 on the card (the plain
+        # composition by the gate's rule: no kernel)
+        y64 = ex.ExplorationSim(ExperimentConfig(**mfegp), seed=0,
+                                plan_iters=iters, dtype=torch.float64).run()
+        r32 = mf_rec["result"].rmse
+        check("explore float32 RMSE within 2x of float64",
+              y64.rmse is not None and r32 <= 2.0 * y64.rmse,
+              f"MFEGP RMSE float32 {r32:.6g}, float64 {y64.rmse} on the "
+              f"card ({len(y64.replans)} replans, budget "
+              f"{y64.budget_used:.6g})")
+        emit("explore_f64", nvidia_smi=nvidia_smi(), rmse_f64=y64.rmse,
+             rmse_f32=r32, wall_s=probe.runs[-1]["wall_s"],
+             stages=explore_stage_table(probe.runs[-1]))
+
+        # frozen hyperparameters: the online extension, float64
+        sim = ex.ExplorationSim(ExperimentConfig(
+            multi_fidelity=True, ergodic=False, B=EXPLORE_B, BD=EXPLORE_BD,
+            update_hyps=False), seed=0, plan_iters=iters, dtype=torch.float64)
+        fz = sim.run()
+        rows = fz.gp_data.data
+        fresh = sim._make_model(rows[:, 4:7], rows[:, 8].astype(int),
+                                rows[:, 7])
+        fresh.set_param_array(fz.model.param_array)
+        tp = sim.cfg.test_points()
+        (mu_o, var_o), (mu_f, var_f) = fz.model.predict(tp), fresh.predict(tp)
+        modes = [r.fit_mode for r in fz.replans]
+        check("explore frozen hyperparameters extend",
+              modes[:1] == ["refit"] and len(modes) > 1
+              and set(modes[1:]) == {"extend"}
+              and allclose(mu_o, mu_f, 1e-6, 1e-8)
+              and allclose(var_o, var_f, 1e-6, 1e-8),
+              f"fit modes {modes}; extended against reconditioned posterior "
+              f"on {len(tp)} points: mean {max_err(mu_o, mu_f):.3e}, var "
+              f"{max_err(var_o, var_f):.3e} (rtol 1e-6, atol 1e-8)")
+        emit("explore_frozen", nvidia_smi=nvidia_smi(),
+             wall_s=probe.runs[-1]["wall_s"], fit_modes=modes,
+             update_s=[r.fit_seconds for r in fz.replans], rmse=fz.rmse)
+
+        # resume after replan 2 (float32, the main path's MFEGP the
+        # uninterrupted run); replan 2 alone under the profiler
+        ck_path = os.path.join(base, "resume", "ck")
+        os.makedirs(os.path.dirname(ck_path))
+        ex.ExplorationSim(ExperimentConfig(**mfegp), seed=0,
+                          plan_iters=iters).run(
+            max_replans=EXPLORE_RESUME_AFTER, checkpoint_path=ck_path)
+        idle_replan = device_idle_share(torch, lambda: ex.ExplorationSim(
+            ExperimentConfig(**mfegp), seed=0, plan_iters=iters).run(
+            max_replans=EXPLORE_RESUME_AFTER + 1, resume_from=ck_path))
+        one = probe.runs[-1]
+        rest = ex.ExplorationSim(ExperimentConfig(**mfegp), seed=0,
+                                 plan_iters=iters).run(resume_from=ck_path)
+        full = mf_rec["result"]
+        tail = full.replans[EXPLORE_RESUME_AFTER:]
+        same = (len(rest.replans) == len(tail) and all(
+            (a.plan_num, a.nodes, a.edges) == (b.plan_num, b.nodes, b.edges)
+            and a.path_points.shape == b.path_points.shape
+            and np.allclose(a.path_points, b.path_points, 1e-6, 1e-6)
+            for a, b in zip(rest.replans, tail)))
+        rows_ok = (rest.gp_data.data.shape == full.gp_data.data.shape
+                   and np.allclose(rest.gp_data.data, full.gp_data.data,
+                                   1e-6, 1e-6))
+        check("explore resume after replan 2",
+              same and rows_ok
+              and abs(rest.budget_used - full.budget_used) <= 1e-6,
+              f"resumed replans {[r.plan_num for r in rest.replans]} against "
+              f"{[r.plan_num for r in tail]}: same graphs and paths {same}; "
+              f"rows {rest.gp_data.data.shape} vs {full.gp_data.data.shape} "
+              f"within 1e-6 {rows_ok}; budget {rest.budget_used:.9g} vs "
+              f"{full.budget_used:.9g}")
+        emit("explore_resume", nvidia_smi=nvidia_smi(),
+             idle_one_replan=idle_replan,
+             one_replan=explore_stage_table(one), rmse=rest.rmse)
+
+        # dynamic flight through the runtime, cut to EXPLORE_DYNAMIC_REPLANS
+        dyn_out = os.path.join(base, "dynamic")
+        dyn = ex.ExplorationSim(ExperimentConfig(**mfegp), seed=0,
+                                plan_iters=iters, flight="dynamic",
+                                out_dir=dyn_out).run(
+            max_replans=EXPLORE_DYNAMIC_REPLANS)
+        drec = probe.runs[-1]
+        files = set(os.listdir(dyn_out))
+        ticks = [np.loadtxt(os.path.join(dyn_out, f"estimates{k}.csv"),
+                            delimiter=",", skiprows=1, ndmin=2).shape[0]
+                 for k in range(len(dyn.replans))
+                 if f"estimates{k}.csv" in files]
+        check("explore dynamic flight",
+              len(dyn.replans) >= 1 and all(
+                  r.tracking_rmse > 0.01 and r.flown_budget > 0
+                  for r in dyn.replans)
+              and all(f"{n}{k}.csv" in files for k in range(len(dyn.replans))
+                      for n in ("estimates", "control")),
+              f"{len(dyn.replans)} replans: tracking RMSE "
+              f"{[r.tracking_rmse for r in dyn.replans]} (> 0.01), flown "
+              f"budget {[r.flown_budget for r in dyn.replans]} (> 0), "
+              f"ticks {ticks}, estimates/control files written")
+        dst = explore_stage_table(drec)
+        replan_s = [sum(v) for v in zip(dst["eid_s"], dst["plan_s"],
+                                        dst["fly_s"], dst["update_s"])]
+        emit("explore_dynamic", nvidia_smi=nvidia_smi(),
+             replans=len(dyn.replans), ticks=ticks,
+             us_per_tick=[s / t * 1e6 for s, t in zip(dst["fly_s"], ticks)],
+             runtime_share=[f / r for f, r in zip(dst["fly_s"], replan_s)],
+             stages=dst, rmse=dyn.rmse, observer=explore_observer_times(
+                 torch, dev))
+    finally:
+        probe.restore()
+        shutil.rmtree(base, ignore_errors=True)
+    return launches
+
+
 NEW_PHASES = ("study", "study_f64", "study_batched", "nigp", "recursive",
-              "planner")
+              "planner", "explore")
 
 
 def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
-    """Phases 7 to 11 in turn (the batched study, 10, after the study's
+    """Phases 7 to 12 in turn (the batched study, 10, after the study's
     phases, whose dataset it compares with); returns each path's launches
     by phase."""
     launches = {}
@@ -2923,11 +3414,14 @@ def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
     torch.cuda.empty_cache()
     if "planner" in only:
         launches["planner"] = planner_phase(torch, ck, cov, dev)
+    torch.cuda.empty_cache()
+    if "explore" in only:
+        launches["explore"] = explore_phase(torch, ck, cov, dev)
     return launches
 
 
 def only_phases(names) -> int:
-    """``--only``: the build and the named phases of 7 to 11; no result
+    """``--only``: the build and the named phases of 7 to 12; no result
     line."""
     import torch
 

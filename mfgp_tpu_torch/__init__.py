@@ -18,6 +18,8 @@ models.nigp       the input-noise GP: alternating and native fits, posteriors
 models.mfgp_recursive  the recursive (per-level residual) multi-fidelity GP
 fields.wrbf       the WRBF field, the random-field draw, FieldSettings files
 estimation.kalman the Kalman steps and the batched trajectory filter
+estimation.observers  rotation helpers and the glider body-velocity
+                  observer (torch; capturable as a CUDA graph)
 utils.configs     ``KFConfig`` / ``SimConfig`` / ``ExperimentConfig``;
                   utils.device: the device rule
 metrics           the ergodic KL and Fourier metrics, the EID, the
@@ -30,7 +32,15 @@ data.aggregate    ``MSE_*.txt`` files to ``results.csv`` and mean metrics
 data.pipeline     trajectory -> KF estimates -> field measurements -> bins
 data.trainers     fit {MFGP, SFGP, SFGP-TP, NIGP}, RMSE / WMSE, artifacts
 data.study        the model-comparison study and the training-size study
-cli               ``python -m mfgp_tpu_torch.cli study ...`` and seven more
+hw                the robot layer: controllers, I/O, geo, trajectories,
+                  xbee, the glider plant (NumPy copies), the AprilTag
+                  fusion, and ``hw.runtime`` (the sense->estimate->control
+                  loop, its observer step on the card)
+sim.explore       ``ExplorationSim``: the closed loop (EID, replan, flight,
+                  refit); sim.dynamics: RK4 and toy models
+utils.checkpoint  npz checkpoints of a closed-loop run (the JAX package's
+                  layout) and model restore
+cli               ``python -m mfgp_tpu_torch.cli explore ...`` and eight more
 
 Everything that builds tensors takes ``device``: the card by default, an
 error where there is no CUDA device, the CPU only when asked

@@ -8,14 +8,19 @@
   python -m mfgp_tpu_torch.cli trainers --data-dir D --field-dir F --out O
   python -m mfgp_tpu_torch.cli aggregate 'GPResults/MSE_*.txt' --out results.csv
   python -m mfgp_tpu_torch.cli study    --out D [--fit-mode device] ...
+  python -m mfgp_tpu_torch.cli explore  [--variant MFEGP|SFGP|...] --out D
   python -m mfgp_tpu_torch.cli infogain-test      # info-gain identity check
 
 Every command runs on the card and raises where there is no CUDA device,
 unless ``--cpu`` (before the command) asks for the CPU. Each prints one
 JSON document with the JAX package's keys on standard output; the trainers
 and the study also report, on standard error, how many WMSE metrics were
-redone in float64 (on the same device). The other commands of the JAX package
-(explore, mission, campaign, serve, plot) are not here yet.
+redone in float64 (on the same device). ``explore`` runs its models in
+float32 on the card and in float64 with ``--cpu``, what the JAX package
+computes on the TPU and on the CPU. The other commands of the JAX package
+(mission, mission-server, campaign, serve, plot) are not here yet, nor is
+``explore``'s device planner (``--planner device``, ``--plan-ensemble``),
+which raises.
 """
 
 from __future__ import annotations
@@ -166,6 +171,52 @@ def cmd_study(args):
     print(json.dumps(rep, indent=1))
 
 
+def cmd_explore(args):
+    """BASELINE config 5: full closed-loop adaptive exploration."""
+    device = _device(args)
+    from mfgp_tpu_torch.sim import ExplorationSim
+    from mfgp_tpu_torch.utils.configs import ExperimentConfig
+
+    variant = args.variant.upper()
+    exp = ExperimentConfig(multi_fidelity=variant.startswith("MF"),
+                           ergodic=variant in ("MFEGP", "SFEGP"),
+                           ergodic_metric=args.ergodic_metric,
+                           info_cost=args.info_cost,
+                           B=args.budget, BD=args.bd)
+    sim = ExplorationSim(exp, seed=args.seed, out_dir=args.out,
+                         plan_iters=args.plan_iters, flight=args.flight,
+                         planner_backend=args.planner,
+                         plan_ensemble=args.plan_ensemble, device=device)
+    if variant == "MANUAL":
+        if args.waypoints:
+            wp = np.loadtxt(args.waypoints, delimiter=",", ndmin=2)[:, :3]
+        elif args.trajectory_name:
+            from mfgp_tpu_torch.hw.trajectories import (reference_trajectory,
+                                                        scale_to_workspace)
+
+            t = np.linspace(0, 540, 40)
+            curve = reference_trajectory(args.trajectory_name, t)
+            wp = scale_to_workspace(curve, exp.sim.WS, exp.sim.max_depth)
+        else:  # default lawnmower-ish demo chain
+            wp = np.array([[1, 1, 0], [8, 4, 3], [3, 15, 5], [8, 18, 0]],
+                          float)
+        res = sim.run_manual(wp)
+        name = "Manual"
+    else:
+        res = sim.run(checkpoint_path=args.checkpoint,
+                      resume_from=args.resume_from)
+        name = exp.variant
+    out = {
+        "variant": name, "replans": len(res.replans),
+        "n_data": int(res.gp_data.data.shape[0]),
+        "budget_used": res.budget_used, "rmse": res.rmse,
+    }
+    if args.flight == "dynamic" and res.replans:
+        out["tracking_rmse"] = [r.tracking_rmse for r in res.replans]
+        out["flown_budget"] = sum(r.flown_budget or 0.0 for r in res.replans)
+    print(json.dumps(out))
+
+
 def cmd_infogain_test(args):
     """BASELINE config 4 sanity: the mutual-information identity
     (reference/informationGainTest.py) as a quick numerical check, in
@@ -230,6 +281,39 @@ def build_parser():
     p.add_argument("--kernel", default="rbf")
     p.add_argument("--no-resume", action="store_true")
 
+    p = sub.add_parser("explore"); p.set_defaults(fn=cmd_explore)
+    p.add_argument("--variant", default="MFEGP",
+                   type=lambda s: s.upper(),
+                   choices=["MFEGP", "MFGP", "SFEGP", "SFGP", "MANUAL"])
+    p.add_argument("--out")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--budget", type=float, default=150.0)
+    p.add_argument("--bd", type=int, default=10)
+    p.add_argument("--plan-iters", type=int, default=40)
+    p.add_argument("--checkpoint", help="write a checkpoint after each replan")
+    p.add_argument("--resume-from", help="resume from a checkpoint file")
+    p.add_argument("--planner", default="host", choices=["host", "device"],
+                   help="device = the one-launch device planner (not ported "
+                        "yet: raises, ROADMAP A4)")
+    p.add_argument("--plan-ensemble", type=int, default=1,
+                   help="device planner: instances per replan, best plan "
+                        "wins (not ported yet: more than 1 raises)")
+    p.add_argument("--ergodic-metric", default="kl",
+                   choices=["kl", "fourier"],
+                   help="ergodic variants: trajectory-distribution KL "
+                        "(reference) or Fourier/Sobolev spectral cost")
+    p.add_argument("--info-cost", default="sequential",
+                   choices=["sequential", "batch"],
+                   help="info-gain variants: sequential entropy or the "
+                        "grid log-det the reference's physical drivers use")
+    p.add_argument("--waypoints", help="CSV of x,y,z rows (MANUAL variant)")
+    p.add_argument("--trajectory-name",
+                   help="named reference curve for MANUAL (circle, fig8, ...)")
+    p.add_argument("--flight", default="kinematic",
+                   choices=["kinematic", "dynamic"],
+                   help="dynamic = fly plans through the full "
+                        "sense->estimate->control runtime (hw/runtime.py)")
+
     p = sub.add_parser("aggregate"); p.set_defaults(fn=cmd_aggregate)
     p.add_argument("pattern"); p.add_argument("--out")
 
@@ -242,8 +326,7 @@ def build_parser():
     p.add_argument("--vmn", type=float, nargs="+", default=[0.0, 0.1, 0.2])
     p.add_argument("--field-seeds", type=int, nargs="+", default=[0])
     p.add_argument("--closed-loop", action="store_true",
-                   help="generate trajectories with the closed-loop sim "
-                        "(not ported yet: raises)")
+                   help="generate trajectories with the closed-loop sim")
     p.add_argument("--duration", type=float, default=1200.0)
     p.add_argument("--fit-mode", default="scipy",
                    choices=["scipy", "device", "device-batched"],

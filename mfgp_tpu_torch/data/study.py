@@ -102,6 +102,27 @@ def scripted_trajectory(seed: int, cfg: SimConfig, duration: float = 1200.0,
     return Table(["t", "x", "y", "z"], np.column_stack([t, x, y, z]))
 
 
+def closed_loop_trajectory(seed: int, cfg: SimConfig, budget: float = 30.0,
+                           plan_iters: int = 10, device=CUDA,
+                           kf_noise=None) -> Table:
+    """Ground-truth trajectory from an actual closed-loop exploration run
+    (the missing generator of the reference's mfgpSimSimp.csv): the SFEGP
+    variant on ``device`` (its model in float32 on the card, float64 on the
+    CPU); ``kf_noise`` goes to ``ExplorationSim`` (the filter's draws)."""
+    from mfgp_tpu_torch.sim import ExplorationSim
+    from mfgp_tpu_torch.utils.configs import ExperimentConfig
+
+    exp = ExperimentConfig(sim=cfg, multi_fidelity=False, ergodic=True,
+                           B=budget, BD=3)
+    sim = ExplorationSim(exp, seed=seed, plan_iters=plan_iters,
+                         device=device, kf_noise=kf_noise)
+    res = sim.run()
+    est = res.estimates
+    if est.shape[0] < 10:
+        return scripted_trajectory(seed, cfg)
+    return Table(["t", "x", "y", "z"], est[:, :4])
+
+
 def run_study(out_dir: str, traj_seeds=(0, 1), vmn_levels=(0.0, 0.2),
               field_seeds=(0,), cfg: SimConfig | None = None,
               closed_loop: bool = False, optimize: bool = True,
@@ -117,7 +138,9 @@ def run_study(out_dir: str, traj_seeds=(0, 1), vmn_levels=(0.0, 0.2),
     ``process_datasets_batched`` call, as lanes of one batch per model
     family, ``fit_chunk`` / ``eval_chunk`` datasets per call; ``ftol`` is
     its restart lanes' stagnation stop (0.0 restores the per-dataset fits'
-    pure max|g| < tol criterion). ``closed_loop`` waits for its module.
+    pure max|g| < tol criterion). ``closed_loop``: each trajectory is a
+    closed-loop exploration run's (``closed_loop_trajectory`` on
+    ``device``) instead of a scripted one.
     ``filter_noises`` maps ``(field seed, vmn)`` to the per-trajectory
     standard normal draws of the filter's measurement noise
     (``generate_estimates_batch``'s ``noises``) in place of the seeded
@@ -130,10 +153,6 @@ def run_study(out_dir: str, traj_seeds=(0, 1), vmn_levels=(0.0, 0.2),
     """
     import time
 
-    if closed_loop:
-        raise NotImplementedError(
-            "closed_loop=True waits for mfgp_tpu_torch.sim (ExplorationSim), "
-            "which is not ported yet; scripted trajectories run")
     _check_fit_mode(fit_mode, batched=True)
     batched = fit_mode == "device-batched"
     staged: list[tuple[str, str]] = []
@@ -152,7 +171,10 @@ def run_study(out_dir: str, traj_seeds=(0, 1), vmn_levels=(0.0, 0.2),
         field = random_field(frng, base_cfg.WS, base_cfg.max_depth,
                              device=device)
         traj_cfg = SimConfig(seed=fseed, vmn=0.0)
-        trajs = [scripted_trajectory(tseed, traj_cfg, duration=duration)
+        trajs = [(closed_loop_trajectory(tseed, traj_cfg, device=device)
+                  if closed_loop
+                  else scripted_trajectory(tseed, traj_cfg,
+                                           duration=duration))
                  for tseed in traj_seeds]
         for vmn in vmn_levels:
             run_cfg = SimConfig(seed=fseed, vmn=vmn)

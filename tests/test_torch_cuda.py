@@ -761,3 +761,60 @@ def test_cost_batch_float32_vs_float64_on_card(dev, gen, name):
     assert np.isfinite(s64).all() and np.isfinite(s32).all()
     rtol = 1e-4 if name in ("ergodic", "fourier") else 1e-2
     assert np.abs(s32 - s64).max() <= rtol * np.abs(s64).max()
+
+
+# ---------------------------------------------------------------------------
+# the closed loop: the runtime's observer step and the simulator
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("graph", [True, False])
+def test_observer_step_on_the_card(dev, gen, graph):
+    """The runtime's per-tick observer call on the card (float64, replayed
+    as a CUDA graph or eager) against the same call on the CPU, over ticks
+    whose inputs change: 1e-12."""
+    from mfgp_tpu_torch.estimation.observers import GliderParams
+    from mfgp_tpu_torch.hw.runtime import ObserverStep
+
+    params = GliderParams(lp=0.61, bc=0.55)
+    card = ObserverStep(params, dev, graph=graph)
+    cpu = ObserverStep(params, "cpu")
+    assert card.graph == graph and not cpu.graph
+    for _ in range(20):
+        args = (*gen.uniform(-0.8, 0.8, 3), gen.normal(0, 0.2, 3),
+                gen.normal(0, 0.3, 3), *gen.uniform(0, 3, 2),
+                gen.uniform(0, 1), gen.uniform(-0.5, 0.5))
+        for a, b in zip(card(*args), cpu(*args)):
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
+    assert (card._cuda_graph is not None) == graph
+
+
+def test_explore_float32_on_the_card(dev, tmp_path):
+    """A short MFGP run on the card in float32 (the sim's default there):
+    B1 launched in the refit and in the EID of every replan, the models on
+    the card, the artifacts written, a finite RMSE."""
+    from mfgp_tpu_torch.sim import ExplorationSim
+    from mfgp_tpu_torch.utils.configs import ExperimentConfig
+
+    sim = ExplorationSim(ExperimentConfig(multi_fidelity=True, ergodic=False,
+                                          B=20, BD=2), seed=1, plan_iters=8,
+                         out_dir=str(tmp_path))
+    assert sim.dtype == torch.float32 and sim.device.type == "cuda"
+    counts = {"eid": [], "fit": []}
+    eid, fit = sim._eid, sim._fit
+
+    def counted(fn, key):
+        def run(model):
+            n0 = ck.LAUNCHES["ar1_cov_fused"]
+            out = fn(model)
+            counts[key].append(ck.LAUNCHES["ar1_cov_fused"] - n0)
+            return out
+        return run
+
+    sim._eid, sim._fit = counted(eid, "eid"), counted(fit, "fit")
+    res = sim.run()
+    assert len(res.replans) >= 1
+    assert counts["eid"] and min(counts["eid"]) >= 1
+    assert counts["fit"] and min(counts["fit"]) >= 1
+    assert res.model.X.is_cuda and res.model.X.dtype == torch.float32
+    assert res.rmse is not None and np.isfinite(res.rmse)
+    assert res.budget_used <= 20.0 + 1e-9
+    assert (tmp_path / "replans.csv").exists()

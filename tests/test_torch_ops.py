@@ -240,7 +240,8 @@ def test_cuda_gate_on_cpu():
 def test_port_imports_without_jax_or_triton():
     """The port never imports jax (nor triton, nor the JAX package):
     checked in a fresh interpreter that imports the models, ops, metrics,
-    planning, configuration and command-line modules."""
+    planning, observer, robot-layer, simulator, checkpoint, configuration
+    and command-line modules."""
     code = (
         "import sys\n"
         "import mfgp_tpu_torch\n"
@@ -251,7 +252,11 @@ def test_port_imports_without_jax_or_triton():
         "from mfgp_tpu_torch.metrics import eid, ergodic, fourier, "
         "info_gain\n"
         "from mfgp_tpu_torch.planning import primitives, rig, scoring\n"
-        "from mfgp_tpu_torch.utils import configs\n"
+        "from mfgp_tpu_torch.utils import checkpoint, configs\n"
+        "from mfgp_tpu_torch.estimation import observers\n"
+        "from mfgp_tpu_torch import hw, sim\n"
+        "from mfgp_tpu_torch.hw import apriltag, plant, runtime\n"
+        "from mfgp_tpu_torch.sim import dynamics, explore\n"
         "bad = [m for m in ('jax', 'triton', 'mfgp_tpu') if m in "
         "sys.modules]\n"
         "assert not bad, bad\n")

@@ -283,11 +283,14 @@ def short_batched(monkeypatch):
     return tsb
 
 
-def test_not_implemented_routes(dataset, short_batched, tmp_path):
+def test_not_implemented_routes(dataset, short_batched, tmp_path,
+                                monkeypatch):
     """``device-batched`` routes to the batched study from
     ``process_directory`` (the same results as calling it) and from
-    ``run_study`` (its statistics under ``timings["batched"]``); what waits
-    for a later module says so by name, and never runs as another mode."""
+    ``run_study`` (its statistics under ``timings["batched"]``), and not
+    from ``train_models``. ``run_study(closed_loop=True)`` runs on the
+    port's ``closed_loop_trajectory``, whose trajectory (given the JAX
+    package's filter draws) is JAX's."""
     data_dir, field_dir = dataset[2] / "GPDataSets", dataset[2] / "FieldData"
     fname = "GPData_0.2_fieldMeas_0_T0_0.1.csv"
     res = ttr.process_directory(str(data_dir), str(field_dir),
@@ -313,9 +316,29 @@ def test_not_implemented_routes(dataset, short_batched, tmp_path):
     with pytest.raises(ValueError):
         ttr.train_models(tio.load_gp_dataset(str(data_dir / fname)),
                          fit_mode="device-batched", device=CPU)
-    with pytest.raises(NotImplementedError, match="mfgp_tpu_torch.sim"):
-        tstudy.run_study(str(tmp_path / "c"), closed_loop=True, device=CPU)
-    assert not os.path.exists(tmp_path / "c")
+    used, closed_loop = [], tstudy.closed_loop_trajectory
+
+    def with_jax_draws(seed, cfg, **kw):
+        key = jax.random.key(seed)
+
+        def draws(plan_num, n):
+            k = key
+            for _ in range(plan_num + 1):
+                k, sub = jax.random.split(k)
+            return np.array(jax.random.normal(sub, (n, 6), jnp.float64))
+        used.append(closed_loop(seed, cfg, kf_noise=draws, **kw))
+        return used[-1]
+
+    monkeypatch.setattr(tstudy, "closed_loop_trajectory", with_jax_draws)
+    rep = tstudy.run_study(str(tmp_path / "c"), traj_seeds=(0,),
+                           vmn_levels=(0.1,), closed_loop=True,
+                           fit_mode="device-batched", device=CPU,
+                           fit_chunk=1, eval_chunk=1)
+    assert rep["overall"]["n"] == 1 and len(used) == 1
+    ref = jstudy.closed_loop_trajectory(0, jcfg.SimConfig(seed=0, vmn=0.0))
+    assert used[0].headers == ref.headers
+    assert used[0].data.shape == ref.data.shape
+    np.testing.assert_allclose(used[0].data, ref.data, rtol=1e-8, atol=1e-8)
 
 
 # ---------------------------------------------------------------------------
@@ -386,7 +409,7 @@ def keys(doc):
 
 
 COMMANDS = ["sfgp", "nigp", "mfgp", "pipeline", "trainers", "aggregate",
-            "study", "infogain-test"]
+            "study", "infogain-test", "explore"]
 
 
 @pytest.mark.parametrize("cmd", COMMANDS)
@@ -412,6 +435,9 @@ def test_cli_commands(cmd, dataset, short_fits, tmp_path, capsys):
         "study": lambda o: ["study", "--out", o, "--trajectories", "1",
                             "--vmn", "0.1", "--duration", "100"],
         "infogain-test": lambda o: ["infogain-test", "--seed", "2"],
+        "explore": lambda o: ["explore", "--variant", "SFEGP", "--budget",
+                              "10", "--bd", "1", "--plan-iters", "6",
+                              "--seed", "2", "--out", o],
     }[cmd]
     if cmd == "aggregate":
         for T in range(2):
@@ -433,6 +459,15 @@ def test_cli_commands(cmd, dataset, short_fits, tmp_path, capsys):
         assert got == ref
     elif cmd == "aggregate":
         assert got == ref
+    elif cmd == "explore":
+        # the filter's draws differ (jax.random against torch), so the
+        # rows' values and the RMSE do; the first replan reads none of them
+        assert {k: got[k] for k in ("variant", "replans", "n_data")} == \
+            {k: ref[k] for k in ("variant", "replans", "n_data")}
+        assert abs(got["budget_used"] - ref["budget_used"]) <= 1e-6
+        assert np.isfinite(got["rmse"])
+        assert sorted(os.listdir(tmp_path / "t")) == \
+            sorted(os.listdir(tmp_path / "j"))
     elif cmd == "infogain-test":
         close([got[k] for k in sorted(ref)], [ref[k] for k in sorted(ref)],
               1e-12)
@@ -447,8 +482,13 @@ def test_cli_surface(capsys):
         flags = lambda p: sorted(o for a in p._actions
                                  for o in a.option_strings or [a.dest])
         assert flags(sub.choices[cmd]) == flags(jsub.choices[cmd]), cmd
-    with pytest.raises(SystemExit):
-        tcli.main(["--cpu", "explore"])
+    # explore prints the JAX package's keys
+    argv = ["explore", "--variant", "SFGP", "--budget", "8", "--bd", "1",
+            "--plan-iters", "5"]
+    ref = run_cli(jcli.main, argv, capsys)
+    got = run_cli(tcli.main, ["--cpu"] + argv, capsys)
+    assert keys(got) == keys(ref)
+    assert got["variant"] == ref["variant"] == "SFGP"
 
 
 def test_cli_device_batched(short_batched, tmp_path, capsys):
