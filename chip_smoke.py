@@ -153,6 +153,37 @@
    Fourier run, traced) and over one replan; for the dynamic flight the
    ticks, microseconds per tick and the runtime's share of a replan.
 
+13. Device planner: the whole RIG loop on the card
+   (``planning.rig_device.DeviceRIG``). (a) bench.py's planner unit
+   (``run_planner_tpu``): one ergodic plan of 200 iterations at B=150 on
+   the 2,000-point grid from (1, 1), then 8 lanes of ``plan_batch``, min of
+   3 after a warm-up each with one iteration captured as a CUDA graph and
+   replayed, and eagerly (min of 2 solo plans and one batch after one
+   warm-up), the two held bit for bit; a 10-iteration plan of each under
+   the profiler. (b) One plan per cost (the six) at the
+   simulator's settings (``SimConfig()``, 40 iterations, its first tranche
+   B=15, the planner phase's dataset and models, the training set padded
+   as the simulator pads it) with float32 covariance tiles (B1) and float64
+   posterior algebra for the model costs, replayed, against float64 eager
+   on the card with the same draws (the same nodes and best path: score
+   within 1e-4 relative; a float32 flip of a beam selection is reported)
+   and against the host cost re-scoring its path in float64 (1e-4; the
+   ergodic cost 5e-3). (c) The float32 eager loop of each cost under
+   ``torch.cuda.set_sync_debug_mode("error")``, bit for bit the replayed
+   one. (e) B1 at this path's launch shapes: the first lane-axis launch of
+   each shape held and timed (``planner_lane_check``), the padded training
+   rows exactly 0, the log-det costs' grid blocks against float64. (d) The
+   closed loop through ``cli explore --planner device`` at its defaults
+   for MFEGP, SFEGP, MFGP and SFGP, then MFEGP with ``--plan-ensemble 8``,
+   with the launch counters from 0: phase 12's holds
+   (``explore_run_checks``),
+   every replan through the device loop (its lanes, its replays, B1 in
+   every gain plan), per replan the stage times, per run the wall and peak
+   memory; then the idle share over one SFGP replan at the same tranche
+   (``--budget 15 --bd 1``; a whole run is ~1.3 million kernel events for
+   the profiler). Its B1 launches count each replay of a captured launch
+   (``LAUNCHES`` counts it once).
+
 Every phase prints one JSON line (the fit phase one per part). A failed
 build or launch raises; a failed check is reported and the script exits 1
 after the last phase. The last line, on success only, is
@@ -160,9 +191,9 @@ after the last phase. The last line, on success only, is
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore
+    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore,device_planner
 
-runs the build and only the named phases of 7 to 12 (while working on
+runs the build and only the named phases of 7 to 13 (while working on
 them; ``study_batched`` runs ``study`` first, whose dataset it is held
 to); it prints no result line.
 
@@ -2442,12 +2473,23 @@ PLANNER_RTOL = {"ergodic": 1e-4, "fourier": 1e-4, "sf_gain": 1e-2,
                 "mf_gain": 1e-2, "sf_logdet": 1e-2, "mf_logdet": 1e-2}
 
 
+_PLANNER_SETUP: dict = {}
+
+
 def planner_setup(torch, dev) -> dict:
     """The study's dataset (trajectory 0, vmn 0.2, field seed 0: N of about
     705) through the port's filter and pipeline, the 3-fidelity MFGP and
     the GP on it in float32 on the card, each with one short
     ``optimize_restarts`` (2 lanes x 20 iterations), their float64 copies
-    on the card (the same hyperparameters), and the simulator's grids."""
+    on the card (the same hyperparameters), and the simulator's grids.
+    Built once per device: phases 11 and 13 share it (nothing changes
+    it)."""
+    if dev not in _PLANNER_SETUP:
+        _PLANNER_SETUP[dev] = _planner_setup(torch, dev)
+    return _PLANNER_SETUP[dev]
+
+
+def _planner_setup(torch, dev) -> dict:
     from mfgp_tpu_torch.data.io import load_gp_dataset
     from mfgp_tpu_torch.data.pipeline import (generate_estimates_batch,
                                               run_pipeline)
@@ -3383,12 +3425,468 @@ def explore_phase(torch, ck, cov, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the device planner
+# ---------------------------------------------------------------------------
+# bench.py's planner unit (run_planner_tpu, bench.py:185-253): ergodic, the
+# 2,000-point grid, a random EID (seed 0), B=150, 200 iterations from
+# (1, 1); then 8 lanes of plan_batch; min of 3 after a warm-up each
+DP_ITERS, DP_LANES, DP_B, DP_REPS = 200, 8, 150.0, 3
+# the eager loop is the replayed one's comparison point and takes 7-10 s
+# a plan: after the warm-up, min of 2 solo plans and one 8-lane batch
+DP_EAGER_REPS = (2, 1)
+DP_PROFILE_ITERS = 10  # a plan this long is traced by torch.profiler
+DP_X0 = np.array([1.0, 1.0])
+# each cost: the simulator's plan_iters and first tranche, from the planner
+# phase's start point
+DP_COST_ITERS, DP_TRANCHE = PLANNER_ITERS, PLANNER_TRANCHE
+# float32 covariance tiles (float64 algebra for the model costs) against
+# float64 throughout, and against the host cost in float64 on the same
+# path; the ergodic cost's host score differs by the junction samples the
+# additive statistics count twice (tests/test_rig_device.py:51-66: 5e-3)
+DP_RTOL, DP_ERGODIC_HOST_RTOL = 1e-4, 5e-3
+# the closed loop through the CLI at its defaults (EXPLORE_ARGS) with the
+# device planner: the four variants, then MFEGP with an 8-plan ensemble
+DP_RUNS = (
+    ("MFEGP", ["--variant", "MFEGP"], "ergodic", 1),
+    ("SFEGP", ["--variant", "SFEGP"], "ergodic", 1),
+    ("MFGP", ["--variant", "MFGP"], "mf_gain", 1),
+    ("SFGP", ["--variant", "SFGP"], "sf_gain", 1),
+    ("MFEGP-ens8", ["--variant", "MFEGP", "--plan-ensemble", "8"],
+     "ergodic", 8),
+)
+# traced by torch.profiler: one replan of the simulator's tranche (a whole
+# run is ~1.3 million kernel events, ~3 minutes of the profiler's work)
+DP_PROFILED = ("SFGP", ["--variant", "SFGP", "--budget", "15", "--bd", "1",
+                        "--plan-iters", "40", "--seed", "0"])
+
+
+def dp_rig(dtype, graph: bool, **kw):
+    """A DeviceRIG at the simulator's settings (sim/explore.py's device
+    branch): SimConfig(), budget_cutoff 0.9, DeviceRIG's defaults."""
+    from mfgp_tpu_torch.planning.rig_device import DeviceRIG
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    sim = SimConfig()
+    return DeviceRIG(sim.agent(), delta=sim.step_size,
+                     WS=np.asarray(sim.WS, float), R=sim.near_rad,
+                     Rd=sim.Rd, same_node_distance=sim.same_node_distance,
+                     budget_cutoff=0.9, dtype=dtype, graph=graph, **kw)
+
+
+def same_plan(a, b) -> bool:
+    """Two plans bit for bit: graph, best path, score, budget, trace."""
+    return (a.n_nodes == b.n_nodes and a.info == b.info
+            and a.budget == b.budget and a.chain == b.chain
+            and np.array_equal(a.points, b.points)
+            and np.array_equal(a.node_states, b.node_states)
+            and np.array_equal(a.trace, b.trace))
+
+
+def wall(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def dp_unit(torch, dev) -> dict:
+    """(a) bench.py's planner unit, eager and replayed; (c) the two equal
+    bit for bit. Replayed: min of DP_REPS after a warm-up each; eager:
+    DP_EAGER_REPS after one warm-up."""
+    from mfgp_tpu_torch.metrics.eid import eid_grid
+    from mfgp_tpu_torch.utils.configs import SimConfig
+
+    sim = SimConfig()
+    grid = eid_grid([list(b) for b in sim.WS], sim.max_depth)
+    eid = np.random.default_rng(0).random(grid.shape[0])
+    eid = eid / eid.sum()
+    x0s = np.tile(DP_X0, (DP_LANES, 1))
+    out, plans = {}, {}
+    for mode, graph in (("eager", False), ("replayed", True)):
+        rig = dp_rig(torch.float32, graph, B=DP_B, max_iter=DP_ITERS,
+                     grid=grid, eid=eid, cost="ergodic")
+        reps = DP_EAGER_REPS if mode == "eager" else (DP_REPS, DP_REPS)
+        torch.cuda.reset_peak_memory_stats()
+        rig.plan(DP_X0, seed=0)
+        solo = [wall(torch, lambda: rig.plan(DP_X0, seed=0))
+                for _ in range(reps[0])]
+        if graph:  # the eager batch shares the solo plan's warm-up
+            rig.plan_batch(x0s, seeds=list(range(DP_LANES)))
+        batch = [wall(torch, lambda: rig.plan_batch(
+            x0s, seeds=list(range(DP_LANES)))) for _ in range(reps[1])]
+        plans[mode] = (solo[-1][1], batch[-1][1])
+        s, b = min(t for t, _ in solo), min(t for t, _ in batch)
+        out[mode] = {"plan_seconds": s, "plan_seconds_runs":
+                     [t for t, _ in solo], "plan_batch_seconds": b,
+                     "plan_batch_seconds_runs": [t for t, _ in batch],
+                     "lanes": DP_LANES, "lane_overhead_x": b / s,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "stats": dict(rig.stats)}
+        # one plan of DP_PROFILE_ITERS iterations under the profiler: the
+        # device's busy share and kernels per iteration
+        short = dp_rig(torch.float32, graph, B=DP_B,
+                       max_iter=DP_PROFILE_ITERS, grid=grid, eid=eid,
+                       cost="ergodic")
+        short.plan(DP_X0, seed=0)
+        out[mode]["profile"] = device_idle_share(
+            torch, lambda: short.plan(DP_X0, seed=0))
+        out[mode]["profile"]["iterations"] = DP_PROFILE_ITERS
+    (se, be), (sr, br) = plans["eager"], plans["replayed"]
+    lanes_same = [same_plan(a, b) for a, b in zip(be, br)]
+    check("device planner unit: replayed = eager bit for bit",
+          same_plan(se, sr) and all(lanes_same),
+          f"solo plan (200 iterations): {se.n_nodes} nodes, best "
+          f"{se.info}; the 8 lanes bit-identical: {lanes_same}")
+    check("device planner unit ran", se.n_nodes > 1
+          and se.n_feasible_edges > 0 and all(
+              r.n_nodes > 1 for r in be),
+          f"solo {se.n_nodes} nodes, {se.n_feasible_edges} feasible edges; "
+          f"lanes' nodes {[r.n_nodes for r in be]}, best scores "
+          f"{[r.info for r in be]}")
+    out["solo"] = {"n_nodes": se.n_nodes, "info": se.info,
+                   "budget": se.budget, "feasible_edges":
+                   se.n_feasible_edges}
+    out["lanes"] = [{"n_nodes": r.n_nodes, "info": r.info,
+                     "budget": r.budget} for r in be]
+    return out
+
+
+def dp_points5(res, cfg, S: int) -> np.ndarray:
+    """(x, y, z, t, accrued variance) of a plan's edge samples rebuilt on
+    the host from its primitive chain (the multi-fidelity costs' labels
+    come from the accrued variance)."""
+    from mfgp_tpu_torch.planning import primitives as prim
+    from mfgp_tpu_torch.planning.primitives_device import padded_to_prims
+
+    rows = []
+    for padded, src, dst in res.edges:
+        t, _, _, wpts, _ = prim.evaluate_trajectory(padded_to_prims(padded),
+                                                    cfg)
+        b = np.arctan2(dst[1] - src[1], dst[0] - src[0])
+        ts = np.linspace(0.0, t, S)
+        d, z, v = (np.interp(ts, wpts[:, 2], wpts[:, i]) for i in (0, 1, 3))
+        rows.append(np.column_stack([src[0] + d * np.cos(b),
+                                     src[1] + d * np.sin(b), z, ts, v]))
+    return np.concatenate(rows)
+
+
+def dp_host_score(torch, name, setup, eid64, res, S, dev) -> float:
+    """The host cost of ``name`` in float64 on the card (the models'
+    float64 copies) on the plan's extracted path (NaN without one)."""
+    if not res.edges:
+        return float("nan")
+    pts = dp_points5(res, setup["cfg"].agent(), S)
+    cost = planner_cost(name, setup, torch.float64, eid64, dev)
+    if name in ("ergodic", "fourier"):
+        return float(cost(res.points))
+    if name == "sf_gain":
+        return float(cost(np.column_stack([pts[:, :3],
+                                           np.zeros(len(pts))])))
+    if name == "sf_logdet":
+        return float(cost(pts[:, :3]))
+    return float(cost(pts))
+
+
+def dp_record_lanes(ck, fn) -> tuple:
+    """``fn()`` with the arguments of the first launch of B1's lane axis of
+    each shape recorded; returns (fn's result, {shape: (args, kw)})."""
+    real, seen = ck.ar1_cov_fused_lanes, {}
+
+    def record(*args, **kw):
+        seen.setdefault(lane_launch_shape(ck, args, kw), (args, kw))
+        return real(*args, **kw)
+
+    ck.ar1_cov_fused_lanes = record
+    try:
+        return fn(), seen
+    finally:
+        ck.ar1_cov_fused_lanes = real
+
+
+def dp_costs(torch, ck, dev) -> dict:
+    """(b) one plan per cost at the simulator's settings (max_iter 40, the
+    first tranche B=15) in float32, replayed, against float64 eager on the
+    card with the same draws and against the host cost re-scoring its path
+    in float64; (c) the float32 eager loop under
+    ``torch.cuda.set_sync_debug_mode("error")`` bit for bit the replayed
+    one. Returns per cost its numbers and the recorded lane launches."""
+    from mfgp_tpu_torch.planning.rig_device import (prepare_mf_gain_state,
+                                                    prepare_sf_gain_state)
+
+    setup = planner_setup(torch, dev)
+    cfg = setup["cfg"]
+    x0 = np.array([0.05 * (cfg.WS[0][1] - cfg.WS[0][0]),
+                   0.05 * (cfg.WS[1][1] - cfg.WS[1][0])])
+    out, lanes = {"n_train": setup["n"], "fit_s": setup["fit_s"]}, {}
+    for name in PLANNER_COSTS:
+        mf, gp = setup["models"][torch.float32]
+        mf64, gp64 = setup["models"][torch.float64]
+        eid = planner_eid(name, mf, gp, setup["grid"])
+        eid64 = eid.double()
+        grid = setup["ig_grid"] if name.endswith("logdet") else setup["grid"]
+        n = int(setup["n"])
+        nmax = 1 << max(9, (4 * n - 1).bit_length())  # the sim's pad
+        if name.startswith("mf"):
+            gp32 = prepare_mf_gain_state(mf, setup["fid_levels"], nmax)
+            g64 = prepare_mf_gain_state(mf64, setup["fid_levels"], nmax)
+        elif name.startswith("sf"):
+            gp32 = prepare_sf_gain_state(gp, nmax)
+            g64 = prepare_sf_gain_state(gp64, nmax)
+        else:
+            gp32 = g64 = None
+        kw = dict(B=DP_B, max_iter=DP_COST_ITERS, grid=grid, cost=name)
+        r32 = dp_rig(torch.float32, True, **kw)
+        e32 = dp_rig(torch.float32, False, **kw)
+        r64 = dp_rig(torch.float64, False, **kw)
+        draws = r64.draws(torch.Generator().manual_seed(PLANNER_SEED))
+        args = dict(B=DP_TRANCHE, eid=eid, gp=gp32, draws=draws)
+        torch.cuda.reset_peak_memory_stats()
+        first, p32 = wall(torch, lambda: r32.plan(x0, **args))
+        second, _ = wall(torch, lambda: r32.plan(x0, **args))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        stats = dict(r32.stats)
+        # the eager float32 loop with no host synchronisation allowed
+        a = e32._args(x0, DP_TRANCHE, eid, gp32)
+        d = e32._lane_draws(draws, 0, 1)
+        torch.cuda.synchronize()
+        sync_err = None
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, seen = dp_record_lanes(ck, lambda: e32._run(*a, d))
+        except RuntimeError as e:
+            sync_err, st, seen = str(e)[:300], None, {}
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        pe = e32._extract(e32._to_host(st), 0) if st is not None else None
+        check(f"device planner {name}: eager loop without host sync",
+              sync_err is None, f"set_sync_debug_mode('error') over the "
+              f"eager loop of {DP_COST_ITERS} iterations: {sync_err}")
+        check(f"device planner {name}: replayed = eager bit for bit",
+              pe is not None and same_plan(pe, p32),
+              f"{p32.n_nodes} nodes, best {p32.info}, chain {p32.chain}")
+        f64_s, p64 = wall(torch, lambda: r64.plan(
+            x0, B=DP_TRANCHE, eid=eid64, gp=g64, draws=draws))
+        same_nodes = (p32.n_nodes == p64.n_nodes and np.allclose(
+            p32.node_states, p64.node_states, atol=1e-4))
+        same_path = p32.chain == p64.chain
+        rel = (abs(p32.info - p64.info) / max(abs(p64.info), 1e-30)
+               if np.isfinite(p64.info) else None)
+        rtol = DP_RTOL
+        check(f"device planner {name}: float32 vs float64 on the card",
+              np.isfinite(p32.info) and np.isfinite(p64.info)
+              and ((same_nodes and same_path and rel <= rtol)
+                   or not (same_nodes and same_path)),
+              f"nodes {p32.n_nodes} / {p64.n_nodes} (same within 1e-4: "
+              f"{same_nodes}), best chain equal: {same_path}, score "
+              f"{p32.info} / {p64.info} (rel {rel}, <= {rtol:g} when the "
+              "same path is chosen)" + ("" if same_nodes and same_path else
+                                        "; float32 flipped a beam "
+                                        "selection: the plans part"))
+        host = dp_host_score(torch, name, setup, eid64, p32, r32.S, dev)
+        hrel = abs(p32.info - host) / max(abs(host), 1e-30)
+        hbar = DP_ERGODIC_HOST_RTOL if name == "ergodic" else rtol
+        check(f"device planner {name}: score = host cost in float64",
+              bool(hrel <= hbar), f"device {p32.info}, host {host} on the "
+              f"extracted path of {p32.points.shape[0]} points (rel "
+              f"{hrel:.3e} <= {hbar:g})")
+        lanes.update({(name, k): v for k, v in seen.items()})
+        out[name] = {"plan_s_first": first, "plan_s": second,
+                     "eager_s": eager_s, "f64_eager_s": f64_s,
+                     "n_pad": nmax if gp32 is not None else None,
+                     "nodes": [p32.n_nodes, p64.n_nodes],
+                     "same_nodes": same_nodes, "same_path": same_path,
+                     "score_f32": p32.info, "score_f64": p64.info,
+                     "rel": rel, "host_score_f64": host, "host_rel": hrel,
+                     "path_points": int(p32.points.shape[0]),
+                     "feasible_edges": p32.n_feasible_edges,
+                     "peak_gb": peak, "stats": stats}
+        if name == "mf_gain":
+            out[name]["profile_one_plan"] = device_idle_share(
+                torch, lambda: r32.plan(x0, **args))
+        emit("device_planner_cost", cost=name, nvidia_smi=nvidia_smi(),
+             **out[name])
+    return {"costs": out, "lanes": lanes, "setup": setup}
+
+
+def dp_b1(torch, ck, dev, lanes: dict, setup: dict) -> dict:
+    """(e) B1 at the device planner's launch shapes: the first lane-axis
+    launch of each shape the float32 eager plans made, held and timed by
+    ``planner_lane_check``; the padded training rows (at 1e6) exactly 0 in
+    float32; and the log-det costs' grid blocks (the padded training set
+    against the IG grid, and the grid's Gram) against float64."""
+    from mfgp_tpu_torch.planning.rig_device import (prepare_mf_gain_state,
+                                                    prepare_sf_gain_state)
+    from mfgp_tpu_torch.utils.device import points_like
+
+    times, zeros = {}, {}
+    n = int(setup["n"])
+    done = set()
+    for (name, shape), (args, kw) in lanes.items():
+        a = dict(zip(LANE_ARGS, args), **kw)
+        X1, X2 = a["X1"], a["X2"]
+        for side, X in (("rows", X1), ("cols", X2)):
+            if X.shape[1] > n and bool((X[0, n:] == 1e6).all()):
+                got = ck.ar1_cov_fused_lanes(*args, **kw)
+                pad = got[:, n:, :] if side == "rows" else got[:, :, n:]
+                zeros[f"{name} {shape}"] = int((pad != 0).sum())
+        key = f"{'mf' if name.startswith('mf') else 'sf'} {shape}"
+        if key in done:
+            continue
+        done.add(key)
+        times[f"{name} {shape}"] = planner_lane_check(
+            torch, ck, f"device_planner_{name}", args, kw)
+    check("device planner B1: padded rows exactly 0 in float32",
+          zeros and not any(zeros.values()),
+          f"nonzero entries at the padded training rows: {zeros}")
+    mf, gp = setup["models"][torch.float32]
+    nmax = 1 << max(9, (4 * n - 1).bit_length())
+    G = points_like(setup["ig_grid"], mf.X)
+    Xm, fm, _, vm, lm, rm = prepare_mf_gain_state(
+        mf, setup["fid_levels"], nmax)[:6]
+    Xs, _, vs, ls_, _ = prepare_sf_gain_state(gp, nmax)
+    gf = torch.full((G.shape[0],), 2, dtype=torch.long, device=dev)
+    z = torch.zeros(nmax, dtype=torch.long, device=dev)
+    zg = torch.zeros(G.shape[0], dtype=torch.long, device=dev)
+    one = (vs.reshape(1), ls_.reshape(1, -1), vs.new_zeros(0))
+    for a in ((Xm, fm, G, gf, vm, lm, rm), (G, gf, G, gf, vm, lm, rm),
+              (Xs, z, G, zg, *one), (G, zg, G, zg, *one)):
+        b1_path_check(torch, ck, "device planner grid block", *a)
+    return times
+
+
+class DevicePlanProbe(ExploreProbe):
+    """ExploreProbe with the device planner's plan as the "plan" stage, and
+    every loop's own B1 count: a captured launch counts once in
+    ``LAUNCHES`` but runs once per replay, so ``extra`` adds the replays'
+    launches the counter did not see."""
+
+    def __init__(self, torch, ck, explore_mod, rig_mod, model_mods,
+                 device_rig_mod):
+        super().__init__(torch, ck, explore_mod, rig_mod, model_mods)
+        self.extra, self.plans = 0, []
+        self._wrap(device_rig_mod.DeviceRIGAdapter, "plan",
+                   self._stage("plan"))
+        self._wrap(device_rig_mod.DeviceRIG, "_run", self._loop)
+
+    def _loop(self, orig):
+        def run(rig, *a, **kw):
+            st = orig(rig, *a, **kw)
+            s = dict(rig.stats, cost=rig.cost, lanes=int(a[0].shape[0]))
+            self.extra += s["b1_captured"] * max(s["replays"] - 1, 0)
+            self.plans.append(s)
+            if self.cur is not None:
+                self.cur.setdefault("loops", []).append(s)
+            return st
+        return run
+
+
+def device_planner_phase(torch, ck, cov, dev) -> dict:
+    """Phase 13 (see the module docstring). Returns the launches of the
+    closed-loop runs (d), counted from 0 just before the first, B1's with
+    every replay of a captured launch."""
+    from mfgp_tpu_torch import cli
+    from mfgp_tpu_torch.models import gp as gp_mod
+    from mfgp_tpu_torch.models import mfgp as mfgp_mod
+    from mfgp_tpu_torch.planning import rig as rig_mod
+    from mfgp_tpu_torch.planning import rig_device as rd_mod
+    from mfgp_tpu_torch.sim import explore as ex
+
+    parts = {}
+    t0 = time.perf_counter()
+    unit = dp_unit(torch, dev)
+    emit("device_planner_unit", nvidia_smi=nvidia_smi(), **unit)
+    parts["a_unit"] = time.perf_counter() - t0
+    costs = dp_costs(torch, ck, dev)
+    parts["b_costs"] = time.perf_counter() - t0 - sum(parts.values())
+    b1 = dp_b1(torch, ck, dev, costs["lanes"], costs["setup"])
+    emit("device_planner_b1", nvidia_smi=nvidia_smi(), times=b1)
+    parts["e_b1"] = time.perf_counter() - t0 - sum(parts.values())
+    del costs
+    torch.cuda.empty_cache()
+
+    probe = DevicePlanProbe(torch, ck, ex, rig_mod, (gp_mod, mfgp_mod),
+                            rd_mod)
+    base = tempfile.mkdtemp(prefix="mfgp_device_planner_")
+    try:
+        runs = {}
+        ck.reset_launches()
+        probe.extra = 0
+        for label, flags, cost, ens in DP_RUNS:
+            out = os.path.join(base, label)
+            argv = ["explore", *flags, "--planner", "device", *EXPLORE_ARGS,
+                    "--out", out]
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv)
+            rec = probe.runs[-1]
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            runs[label] = (rec, cost, ens, out, json.loads(
+                buf.getvalue().strip().splitlines()[-1]))
+        launches = dict(ck.LAUNCHES)
+        counted, replayed = launches["ar1_cov_fused"], probe.extra
+        launches["ar1_cov_fused"] += replayed
+        parts["d_runs"] = time.perf_counter() - t0 - sum(parts.values())
+        # one replan under the profiler (not counted in the launches above)
+        label, flags = DP_PROFILED
+        with contextlib.redirect_stdout(io.StringIO()):
+            idle = device_idle_share(torch, lambda: cli.main(
+                ["explore", *flags, "--planner", "device", "--out",
+                 os.path.join(base, "profiled")]))
+        emit("device_planner_idle", run=f"{label}, one replan",
+             nvidia_smi=nvidia_smi(), idle=idle,
+             stages=explore_stage_table(probe.runs[-1]))
+        parts["d_profiled_replan"] = (time.perf_counter() - t0
+                                      - sum(parts.values()))
+        for label, (rec, cost, ens, out, doc) in runs.items():
+            explore_run_checks(torch, f"device {label}", rec, cost, out,
+                               doc)
+            res, loops = rec["result"], rec.get("loops", [])
+            rig = rec["sim"]._device_planner
+            check(f"device planner closed loop {label}",
+                  rig is not None and rig._planner.cost == cost
+                  and rig._n_plans == ens and len(loops) == len(rec["plan"])
+                  and len(res.replans) >= len(loops) - 1
+                  and all(s["lanes"] == ens and s["replays"] > 0
+                          for s in loops)
+                  and (cost == "ergodic" or all(s["b1_launches"] > 0
+                                                for s in loops)),
+                  f"{len(res.replans)} replans, {len(loops)} device loops "
+                  f"(one per plan; a plan that finds no path ends the run) "
+                  f"({[(s['lanes'], s['replays'], s['b1_launches'])
+                        for s in loops][:3]}...: lanes, replays, B1 "
+                  f"launches), cost "
+                  f"{rig._planner.cost if rig else None}")
+            emit("device_planner_explore", run=label,
+                 nvidia_smi=nvidia_smi(), wall_s=rec["wall_s"],
+                 replans=len(res.replans), budget_used=res.budget_used,
+                 rmse=res.rmse, peak_gb=rec["peak_gb"],
+                 stages=explore_stage_table(rec),
+                 b1_per_plan=[s["b1_launches"] for s in loops])
+        check("device planner launches", launches["ar1_cov_fused"] > 0,
+              f"kernel launches over the {len(DP_RUNS)} runs: {launches} "
+              f"(B1: {counted} counted, of them captured once and replayed: "
+              f"+{replayed})")
+        parts["d_checks"] = time.perf_counter() - t0 - sum(parts.values())
+        emit("device_planner_seconds", **parts)
+    finally:
+        probe.restore()
+        shutil.rmtree(base, ignore_errors=True)
+    return launches
+
+
 NEW_PHASES = ("study", "study_f64", "study_batched", "nigp", "recursive",
-              "planner", "explore")
+              "planner", "explore", "device_planner")
 
 
 def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
-    """Phases 7 to 12 in turn (the batched study, 10, after the study's
+    """Phases 7 to 13 in turn (the batched study, 10, after the study's
     phases, whose dataset it compares with); returns each path's launches
     by phase."""
     launches = {}
@@ -3417,11 +3915,15 @@ def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
     torch.cuda.empty_cache()
     if "explore" in only:
         launches["explore"] = explore_phase(torch, ck, cov, dev)
+    torch.cuda.empty_cache()
+    if "device_planner" in only:
+        launches["device_planner"] = device_planner_phase(torch, ck, cov,
+                                                          dev)
     return launches
 
 
 def only_phases(names) -> int:
-    """``--only``: the build and the named phases of 7 to 12; no result
+    """``--only``: the build and the named phases of 7 to 13; no result
     line."""
     import torch
 

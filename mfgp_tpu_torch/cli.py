@@ -293,11 +293,12 @@ def build_parser():
     p.add_argument("--checkpoint", help="write a checkpoint after each replan")
     p.add_argument("--resume-from", help="resume from a checkpoint file")
     p.add_argument("--planner", default="host", choices=["host", "device"],
-                   help="device = the one-launch device planner (not ported "
-                        "yet: raises, ROADMAP A4)")
+                   help="device = the whole RIG loop on the device "
+                        "(planning/rig_device.py), every eligible extension "
+                        "scored")
     p.add_argument("--plan-ensemble", type=int, default=1,
-                   help="device planner: instances per replan, best plan "
-                        "wins (not ported yet: more than 1 raises)")
+                   help="device planner: instances per replan, run as lanes "
+                        "of one loop; the best plan wins")
     p.add_argument("--ergodic-metric", default="kl",
                    choices=["kl", "fourier"],
                    help="ergodic variants: trajectory-distribution KL "

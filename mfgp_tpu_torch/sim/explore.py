@@ -36,9 +36,18 @@ What differs from the JAX package:
   seeded with ``seed`` (torch cannot reproduce ``jax.random``'s stream),
   or taken from ``kf_noise(plan_num, n)``, which returns the (n, 6)
   standard normal draws of a flight (a test passes the JAX package's own).
-* Only the host planner is ported: ``planner_backend="device"`` and
-  ``plan_ensemble > 1`` raise ``NotImplementedError`` (ROADMAP A4; the
-  ensemble's mesh sharding A6).
+* The device planner (``planner_backend="device"``, the whole RIG loop on
+  the device, ``planning.rig_device``) draws from a ``torch.Generator``
+  seeded with ``seed + plan_num`` per replan, or takes
+  ``plan_draws(seed, lanes)``, which returns the (lanes, plan_iters,
+  width) draws of one replan (a test passes the JAX package's own, from
+  ``jax.random.key(seed)``; an ensemble's lanes from its ``split``).
+  ``plan_ensemble = K`` runs K planner instances as lanes of one loop on
+  one device; sharding them over several devices (``mesh``) raises
+  ``NotImplementedError`` (ROADMAP A6). Its plans equal the JAX
+  package's only under that package's draws: ``python -m pytest
+  tests/test_torch_rig_device*.py`` holds them on the CPU, ``python3
+  chip_smoke.py --only device_planner`` drives it on the card.
 """
 
 from __future__ import annotations
@@ -114,7 +123,9 @@ class ExplorationSim:
                  flight: str = "kinematic", runtime_cfg=None,
                  planner_backend: str = "host", plan_ensemble: int = 1,
                  device=CUDA, dtype: torch.dtype | None = None,
-                 kf_noise: Callable[[int, int], np.ndarray] | None = None):
+                 kf_noise: Callable[[int, int], np.ndarray] | None = None,
+                 plan_draws: Callable[[int, int], np.ndarray] | None = None,
+                 mesh=None):
         self.exp = exp or ExperimentConfig()
         self.cfg: SimConfig = self.exp.sim
         self.seed = seed
@@ -140,13 +151,30 @@ class ExplorationSim:
         if flight not in ("kinematic", "dynamic"):
             raise ValueError(flight)
         self.flight = flight
+        # planner_backend="device": the whole RIG loop runs on the device
+        # (planning.rig_device), all six costs and both flight modes (the
+        # adapter rebuilds runtime flight plans from the extracted
+        # primitive chain)
         if planner_backend not in ("host", "device"):
             raise ValueError(planner_backend)
-        if planner_backend == "device" or int(plan_ensemble) > 1:
+        if planner_backend == "device" and self.exp.plan_wallclock:
+            raise ValueError(
+                "the device planner runs a fixed iteration count, not a "
+                "wall-clock stopwatch; set plan_iters instead of "
+                "plan_wallclock")
+        self.planner_backend = planner_backend
+        self.plan_ensemble = int(plan_ensemble)
+        if self.plan_ensemble > 1 and planner_backend != "device":
+            raise ValueError("plan_ensemble requires the device planner "
+                             "(--planner device)")
+        if mesh is not None and self.plan_ensemble > 1:
             raise NotImplementedError(
-                "the device planner (planner_backend='device', "
-                "plan_ensemble > 1) is not ported yet: ROADMAP A4 (its mesh "
-                "sharding of the ensemble: A6); the host planner runs")
+                "the plan ensemble sharded over a device mesh is not ported "
+                "yet (ROADMAP A6); without a mesh its lanes run on one "
+                "device")
+        self.plan_draws = plan_draws
+        self._device_planner = None
+        self._gain_nmax = None
         self._runtime_cfg = runtime_cfg
         self._runtime = None
         # grid the EID / replanning posterior is evaluated on
@@ -230,6 +258,49 @@ class ExplorationSim:
             return scoring.MFInfoGainCost(model=model,
                                           fid_levels=self.agent_cfg.fid_levels)
         return scoring.SFInfoGainCost(model=model)
+
+    def _device_rig(self):
+        """The device planner, built once: B, the EID, the GP state and the
+        seed are per-plan arguments."""
+        if self._device_planner is None:
+            from mfgp_tpu_torch.planning.rig_device import DeviceRIGAdapter
+
+            exp, cfg = self.exp, self.cfg
+            if exp.ergodic:
+                cost = ("fourier" if exp.ergodic_metric == "fourier"
+                        else "ergodic")
+            elif exp.info_cost == "batch":
+                cost = "mf_logdet" if exp.multi_fidelity else "sf_logdet"
+            else:
+                cost = "mf_gain" if exp.multi_fidelity else "sf_gain"
+            self._device_planner = DeviceRIGAdapter(
+                n_plans=self.plan_ensemble, plan_draws=self.plan_draws,
+                cfg=self.agent_cfg, delta=cfg.step_size, B=exp.B,
+                WS=np.asarray(cfg.WS, float), R=cfg.near_rad, Rd=cfg.Rd,
+                same_node_distance=cfg.same_node_distance,
+                budget_cutoff=0.9, max_iter=self.plan_iters,
+                grid=self.ig_grid if cost.endswith("_logdet") else self.grid,
+                kernel=exp.kernel, cost=cost, device=self.device,
+                dtype=self.dtype)
+        return self._device_planner
+
+    def _gain_state(self, model):
+        """The model padded to a static train size for the device
+        planner's gain and log-det costs (None for the ergodic ones)."""
+        if self.exp.ergodic:
+            return None
+        from mfgp_tpu_torch.planning.rig_device import (
+            prepare_mf_gain_state, prepare_sf_gain_state)
+
+        n = int(model.X.shape[0])
+        # the pad is sized generously once and grows only on overflow, as
+        # the JAX package sizes it for its compiled plan
+        if self._gain_nmax is None or n > self._gain_nmax:
+            self._gain_nmax = 1 << max(9, (4 * max(n, 1) - 1).bit_length())
+        if self.exp.multi_fidelity:
+            return prepare_mf_gain_state(model, self.agent_cfg.fid_levels,
+                                         self._gain_nmax)
+        return prepare_sf_gain_state(model, self._gain_nmax)
 
     # -- flight + measurement -----------------------------------------------
     def _fly(self, path_points, t_offset, plan_num: int):
@@ -374,17 +445,22 @@ class ExplorationSim:
         while plan_num < max_replans and (B - planned_budget) > 0.5 * B / BD:
             tranche = min(B / BD, B - planned_budget)
             eid = self._eid(model)
-            cost = self._make_cost(model, eid)
-            planner = RIGPlanner(
-                cfg=self.agent_cfg, delta=cfg.step_size, B=tranche,
-                WS=np.asarray(cfg.WS, float), R=cfg.near_rad, Rd=cfg.Rd,
-                same_node_distance=cfg.same_node_distance,
-                budget_cutoff=0.9, max_iter=self.plan_iters,
-                wallclock_limit=exp.plan_wallclock,
-                seed=self.seed + plan_num, cost=cost,
-                env=self.field.numpy,
-            )
-            best = planner.plan(x0)
+            if self.planner_backend == "device":
+                planner = self._device_rig()
+                best = planner.plan(x0, seed=self.seed + plan_num, B=tranche,
+                                    eid=eid, gp=self._gain_state(model))
+            else:
+                cost = self._make_cost(model, eid)
+                planner = RIGPlanner(
+                    cfg=self.agent_cfg, delta=cfg.step_size, B=tranche,
+                    WS=np.asarray(cfg.WS, float), R=cfg.near_rad, Rd=cfg.Rd,
+                    same_node_distance=cfg.same_node_distance,
+                    budget_cutoff=0.9, max_iter=self.plan_iters,
+                    wallclock_limit=exp.plan_wallclock,
+                    seed=self.seed + plan_num, cost=cost,
+                    env=self.field.numpy,
+                )
+                best = planner.plan(x0)
             pts = planner.best_path_points(dense=True)
             if pts is None or best.segments is None:
                 break

@@ -818,3 +818,128 @@ def test_explore_float32_on_the_card(dev, tmp_path):
     assert res.rmse is not None and np.isfinite(res.rmse)
     assert res.budget_used <= 20.0 + 1e-9
     assert (tmp_path / "replans.csv").exists()
+
+
+# ---------------------------------------------------------------------------
+# the device planner
+# ---------------------------------------------------------------------------
+def _planner(dev, cost, max_iter=6, graph=True):
+    """A DeviceRIG on the card (float32 covariance tiles) at small sizes,
+    with the padded state of a 40-point model of its family."""
+    from mfgp_tpu_torch.metrics.eid import eid_grid
+    from mfgp_tpu_torch.planning.primitives import AgentConfig
+    from mfgp_tpu_torch.planning.rig_device import (DeviceRIG,
+                                                    prepare_mf_gain_state,
+                                                    prepare_sf_gain_state)
+
+    rng = np.random.default_rng(3)
+    cfg = AgentConfig.sim_defaults()
+    cfg.variance_rate = 0.01
+    grid = eid_grid([[0, 10], [0, 20]], 5.0, nums=(6, 5, 2))
+    eid = rng.random(grid.shape[0])
+    X = rng.uniform([0, 0, 0], [10, 20, 5], (40, 3)).astype(np.float32)
+    y = (np.sin(X[:, 0]) + np.cos(X[:, 1] / 3)).astype(np.float32)
+    gp = None
+    if cost.startswith("mf"):
+        m = tm.MFGP(X, rng.integers(0, 3, 40), y, jitter=1e-6, device=dev)
+        gp = prepare_mf_gain_state(m, cfg.fid_levels, 64)
+    elif cost.startswith("sf"):
+        gp = prepare_sf_gain_state(tg.GP(X, y, jitter=1e-6, device=dev), 64)
+    rig = DeviceRIG(cfg, delta=2.0, B=12.0, WS=[[0, 10], [0, 20]], R=3.0,
+                    Rd=2.0, same_node_distance=0.5, budget_cutoff=0.5,
+                    max_iter=max_iter, grid=grid, cost=cost, max_nodes=16,
+                    max_paths=4, samples_per_edge=8, max_path_points=48,
+                    graph=graph, device=dev)
+    return rig, dict(eid=eid / eid.sum() if cost in ("ergodic", "fourier")
+                     else None, gp=gp)
+
+
+def _same(a, b):
+    return (a.n_nodes == b.n_nodes and a.info == b.info
+            and a.budget == b.budget and a.chain == b.chain
+            and np.array_equal(a.points, b.points)
+            and np.array_equal(a.trace, b.trace))
+
+
+@pytest.mark.parametrize("cost", ["ergodic", "sf_gain", "mf_logdet"])
+def test_device_planner_graph_equals_eager(dev, cost):
+    """Iteration 0 eager, one iteration captured as a CUDA graph and
+    replayed: the plan equals the eager loop's bit for bit."""
+    g, kw = _planner(dev, cost, graph=True)
+    e, _ = _planner(dev, cost, graph=False)
+    assert g.graph and not e.graph
+    a, b = g.plan([1.0, 1.0], seed=2, **kw), e.plan([1.0, 1.0], seed=2, **kw)
+    assert _same(a, b) and a.n_nodes > 1
+    assert g.stats["replays"] == 5 and e.stats["replays"] == 0
+
+
+@pytest.mark.parametrize("cost", ["ergodic", "mf_gain", "sf_logdet"])
+def test_device_planner_loop_has_no_host_sync(dev, cost):
+    """The whole eager loop (the plan's constants, the state, every
+    iteration) runs under ``set_sync_debug_mode("error")``."""
+    rig, kw = _planner(dev, cost, graph=False)
+    args = rig._args([1.0, 1.0], None, kw["eid"], kw["gp"])
+    draws = rig.draws(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = rig._run(*args, draws)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(st["n_nodes"][0]) > 1
+
+
+@pytest.mark.parametrize("cost", ["mf_gain", "mf_logdet", "sf_gain"])
+def test_device_planner_b1_matches_plain(dev, cost):
+    """Every lane-axis launch of B1 in a plan (edges, paths, (path, edge)
+    pairs as lanes) against its plain version in float64 on the same
+    inputs: 1e-5 x max(1, largest entry); the padded training rows
+    exactly 0."""
+    rig, kw = _planner(dev, cost, graph=False)
+    seen, real = [], ck.ar1_cov_fused_lanes
+
+    def record(*args):
+        out = real(*args)
+        seen.append((args, out))
+        return out
+
+    ck.ar1_cov_fused_lanes = record
+    try:
+        rig.plan([1.0, 1.0], seed=1, **kw)
+    finally:
+        ck.ar1_cov_fused_lanes = real
+    assert len(seen) >= 3 * rig.max_iter
+    for args, out in seen[:40]:
+        A, fa, B, fb, v, ls, rho, nz, kern = args
+        ref = ck.ar1_cov_fused_lanes_plain(
+            A.double(), fa, B.double(), fb, v.double(), ls.double(),
+            rho.double(), None if nz is None else nz.double(), kern)
+        top = max(1.0, float(ref.abs().max()))
+        assert float((out.double() - ref).abs().max()) <= 1e-5 * top
+        for X, pad in ((A, out[:, 40:, :]), (B, out[:, :, 40:])):
+            if X.shape[1] == 64 and bool((X[:, 40:] == 1e6).all()):
+                assert not bool(pad.any())
+
+
+@pytest.mark.parametrize("cost", ["ergodic", "sf_gain"])
+def test_device_planner_ensemble_equals_solo(dev, cost):
+    """A 2-lane ensemble runs each lane as the solo plan of its draws: the
+    same graphs and best paths, scores within 1e-6 (a lane's reductions
+    may be split differently at another lane count); the winner is the
+    better solo plan."""
+    rig, kw = _planner(dev, cost)
+    draws = rig.draws(torch.Generator().manual_seed(4), lanes=2)
+    ens = rig._to_host(rig._run(*rig._args(np.array([[1.0, 1.0]] * 2),
+                                           None, kw["eid"], kw["gp"]),
+                                draws))
+    lanes = [rig._extract(ens, i) for i in range(2)]
+    solos = [rig.plan([1.0, 1.0], draws=draws[i:i + 1], **kw)
+             for i in range(2)]
+    for a, b in zip(lanes, solos):
+        assert (a.n_nodes, a.chain) == (b.n_nodes, b.chain)
+        np.testing.assert_allclose(a.info, b.info, rtol=1e-6)
+        np.testing.assert_allclose(a.points, b.points, rtol=1e-5,
+                                   atol=1e-5)
+    best = rig.plan_ensemble([1.0, 1.0], n_plans=2, draws=draws, **kw)
+    win = max(solos, key=lambda r: (r.info, -r.budget))
+    assert best.chain == win.chain

@@ -183,13 +183,37 @@ def test_numerical_fit_failure_keeps_hyps(monkeypatch):
 
 
 def test_device_planner_and_ensemble_raise():
-    """The device planner and the plan ensemble are not ported: they raise,
-    naming ROADMAP A4, and never run as the host planner."""
-    for kw in (dict(planner_backend="device"), dict(plan_ensemble=2)):
-        with pytest.raises(NotImplementedError, match="A4"):
-            TSim(small_exp(), device="cpu", **kw)
+    """The device planner and the plan ensemble run (on the CPU when asked
+    for it): every replan by the device loop (SFGP's sequential gain with
+    the gain state padded to a static size; SFEGP with 2 plans as lanes).
+    What still raises: the ensemble sharded over a mesh (ROADMAP A6), an
+    ensemble without the device planner, a stopwatch for a
+    fixed-iteration loop (the JAX package's rules), and the card without
+    CUDA."""
+    for ergodic, ens, cost, nmax in ((False, 1, "sf_gain", 512),
+                                     (True, 2, "ergodic", None)):
+        sim = TSim(TExp(multi_fidelity=False, ergodic=ergodic, B=10, BD=1),
+                   seed=1, plan_iters=4, device="cpu",
+                   planner_backend="device", plan_ensemble=ens)
+        res = sim.run()
+        assert len(res.replans) == 1 and res.rmse is not None
+        rig = sim._device_planner
+        assert rig._planner.cost == cost and rig._n_plans == ens
+        assert rig._planner.device == torch.device("cpu")
+        assert sim._gain_nmax == nmax
+        assert res.replans[0].path_points.shape[1] == 4
+    with pytest.raises(NotImplementedError, match="A6"):
+        TSim(small_exp(), device="cpu", planner_backend="device",
+             plan_ensemble=2, mesh=object())
+    with pytest.raises(ValueError, match="device planner"):
+        TSim(small_exp(), device="cpu", plan_ensemble=2)
+    with pytest.raises(ValueError, match="plan_iters"):
+        TSim(TExp(ergodic=True, plan_wallclock=10.0), device="cpu",
+             planner_backend="device")
     with pytest.raises(ValueError):
         TSim(small_exp(), device="cpu", planner_backend="mesh")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TSim(small_exp())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TSim(small_exp(), planner_backend="device")

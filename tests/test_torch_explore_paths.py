@@ -286,9 +286,11 @@ def test_cli_explore_kinematic_and_device_planner(tmp_path, monkeypatch):
     """``explore`` on the kinematic path (tests/test_sim_cli.py:70-77's
     SFGP run): the CLI cannot take the JAX draws, so the JSON is held
     structurally (its keys, variant, replans, rows and budget are JAX's;
-    the RMSE depends on the draws). ``--planner device`` and
-    ``--plan-ensemble 2`` raise, naming ROADMAP A4; without ``--cpu`` the
-    command needs the card."""
+    the RMSE depends on the draws). ``--planner device`` with and without
+    ``--plan-ensemble 2`` runs on the CPU with ``--cpu`` (its own draws:
+    the same keys, the budget within the run's); ``--plan-ensemble 2``
+    alone raises as JAX's does; without ``--cpu`` the command needs the
+    card."""
     monkeypatch.setenv("MFGP_TPU_COMPILE_CACHE", "0")
     argv = ["explore", "--variant", "SFGP", "--budget", "8", "--bd", "1",
             "--plan-iters", "5"]
@@ -299,9 +301,15 @@ def test_cli_explore_kinematic_and_device_planner(tmp_path, monkeypatch):
         (ref["variant"], ref["replans"], ref["n_data"])
     assert got["budget_used"] == pytest.approx(ref["budget_used"], abs=1e-6)
     assert got["budget_used"] <= 8.0 and np.isfinite(got["rmse"])
-    for extra in (["--planner", "device"], ["--plan-ensemble", "2"]):
-        with pytest.raises(NotImplementedError, match="A4"):
-            tcli.main(["--cpu"] + argv + extra)
+    for extra in (["--planner", "device"],
+                  ["--planner", "device", "--plan-ensemble", "2"]):
+        dev = run_cli(tcli.main, ["--cpu"] + argv + ["--plan-iters", "6"]
+                      + extra)
+        assert sorted(dev) == sorted(ref) and dev["variant"] == "SFGP"
+        assert dev["replans"] == 1 and dev["n_data"] > 0
+        assert 0.0 < dev["budget_used"] <= 8.0
+    with pytest.raises(ValueError, match="device planner"):
+        tcli.main(["--cpu"] + argv + ["--plan-ensemble", "2"])
     if not torch.cuda.is_available():  # the card unless --cpu
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tcli.main(argv)
