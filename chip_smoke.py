@@ -75,12 +75,13 @@
    launches (every lane) and its full grid (every symmetric lane), and
    against its float64 plain version, at L = 1, 3 and 64 lanes and the
    study's seven launch shapes, and at the lane counts the study gives it
-   (the fits' Grams at 720 lanes, the NIGP's at 180, every shape at the
-   10-lane evaluation chunk), and timed at 720 lanes; one batched SFGP
-   evaluation of 720 lanes phase by phase; then
-   ``cli.main(["study", "--fit-mode", "device-batched", ...])`` over the
-   reference's whole 10 x 3 x 3 = 90-dataset design at the same shape
-   (one sweep of 720 restart lanes per family, the NIGP's 180), with the
+   (the fits' Grams at 288 lanes, the NIGP's at 72, every shape at the
+   10-lane evaluation chunk), and timed at 288 lanes; one batched SFGP
+   evaluation of 288 lanes phase by phase; then
+   ``cli.main(["study", "--fit-mode", "device-batched", ...])`` over 4 of
+   the reference design's 10 trajectory seeds (4 x 3 x 3 = 36 datasets of
+   its 90; cut so that phase 14 fits in the call) at the same shape
+   (one sweep of 288 restart lanes per family, the NIGP's 72), with the
    launch counters from 0. Held to: every artifact written and parsed,
    every RMSE finite and every WRMSE finite after the counted float64
    repairs, each dataset's best NLML no higher than its row-0 start, the
@@ -184,6 +185,35 @@
    the profiler). Its B1 launches count each replay of a captured launch
    (``LAUNCHES`` counts it once).
 
+14. Mission: the whole budgeted mission on the card
+   (``sim.mission_device.DeviceMission``, ``hw.runtime_device``) through
+   ``cli.main(["mission", ...])``, with the launch counters from 0: (a) at
+   its defaults (MFEGP, ``--budget 80 --bd 4 --plan-iters 40 --e-max 16``,
+   kinematic flight, float32): the cold and warm seconds, replans,
+   ``n_data`` and RMSE, the same seed in float64 (the float32 RMSE within
+   2x of it), per replan the seconds of each stage (EID, plan, flight,
+   extension, refit) and B1's launches (> 0 in every replan; the
+   planner's captured launches counted once per replay), the planner's
+   replays and capture seconds, one flight's filter eager against a graph,
+   peak memory, and the idle share over a warm one-tranche mission
+   (``torch.profiler``); (b) MFGP with ``--update-hyps --fit-restarts 4``:
+   each refit's evaluations, rounds and NLML (finite, never above its warm
+   start; B1 in every replan); (c) SFEGP with ``--flight dynamic``, then
+   ``--glide-stride 4``: tracking RMSE and flown budget per replan, no
+   ``meas_overflow``, and the first flight flown again by fresh runtimes:
+   microseconds per tick eager and replayed, with ``glide_stride`` 4
+   beside 1, and a short flight with and without the early stop; (d)
+   ``--ensemble 8``: its seconds against the warm solo mission (which
+   includes the 8-lane captures), a warm 8-member ensemble against a warm
+   solo run of one float32 mission, and in float64 member 0 of an
+   8-member ensemble against
+   the solo run of its seed (the same replans and chains, RMSE within 1e-6
+   relative); (e) ``campaign`` at its defaults (4 variants x 5 seeds,
+   ``B=20``, ``BD=2``): seconds per variant, RMSE per seed; (f) the first
+   lane-axis B1 launch of each shape the runs made held and timed
+   (``planner_lane_check``) with its bound. Prints ``mission_seconds``,
+   its parts' seconds.
+
 Every phase prints one JSON line (the fit phase one per part). A failed
 build or launch raises; a failed check is reported and the script exits 1
 after the last phase. The last line, on success only, is
@@ -191,9 +221,9 @@ after the last phase. The last line, on success only, is
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore,device_planner
+    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore,device_planner,mission
 
-runs the build and only the named phases of 7 to 13 (while working on
+runs the build and only the named phases of 7 to 14 (while working on
 them; ``study_batched`` runs ``study`` first, whose dataset it is held
 to); it prints no result line.
 
@@ -2137,9 +2167,9 @@ def b1_lane_checks(torch, ck, dev, N: int = 705, M: int = 2000) -> dict:
     return worst_abs
 
 
-def b1_lane_times(torch, ck, dev, L: int = 720, N: int = 705,
+def b1_lane_times(torch, ck, dev, L: int = 288, N: int = 705,
                   M: int = 2000) -> dict:
-    """B1's lane axis at L lanes (the 90-dataset design's 90 x 8 restart
+    """B1's lane axis at L lanes (the batched study's 36 x 8 restart
     lanes) at the fits' two Gram shapes (N x N + noise, F=1 and F=3), and
     at the evaluation's grid shapes for one evaluation chunk of lanes:
     one lane-axis launch on CUDA events beside the same work as L
@@ -2202,17 +2232,20 @@ def b1_lane_times(torch, ck, dev, L: int = 720, N: int = 705,
 # the batched study: the reference's whole 10 x 3 x 3 design (10 trajectory
 # seeds x velocity-noise levels 0.0, 0.1, 0.2 x 3 field seeds) at its own
 # dataset shape, every dataset's fits in one sweep per model family
-BATCHED_ARGS = ["--trajectories", "10", "--vmn", "0.0", "0.1", "0.2",
+# cut to 4 of the 10 trajectory seeds (36 datasets) to leave the mission
+# phase room in the call's time: the study's other axes and every
+# dataset's shape are the reference's
+BATCHED_ARGS = ["--trajectories", "4", "--vmn", "0.0", "0.1", "0.2",
                 "--field-seeds", "0", "1", "2", "--duration", "3600",
-                "--fit-chunk", "90", "--eval-chunk", "10"]
-BATCHED_RUNS = 90
-BATCHED_CHUNKS = (90, 10)  # fit_chunk, eval_chunk of BATCHED_ARGS
+                "--fit-chunk", "36", "--eval-chunk", "10"]
+BATCHED_RUNS = 36
+BATCHED_CHUNKS = (36, 10)  # fit_chunk, eval_chunk of BATCHED_ARGS
 # n_restarts, nigp_restarts: process_datasets_batched's defaults, which the
 # command line keeps
 BATCHED_RESTARTS = (8, 2)
 
 
-def batched_eval_phases(torch, ck, dev, L: int = 720, N: int = 705) -> dict:
+def batched_eval_phases(torch, ck, dev, L: int = 288, N: int = 705) -> dict:
     """One lane-batched SFGP evaluation (``mfgp.nlml_value_and_grad_lanes``
     at F=1) of L lanes at N, phase by phase on CUDA events: B1's lane axis
     (Gram + noise), the batched Cholesky, alpha and logdet, K^-1 as the
@@ -2276,8 +2309,8 @@ def per_level(values, order, key):
 def study_batched_phase(torch, ck, cov, dev, st: dict) -> dict:
     """Phase 10: B1's lane axis against single-lane launches and its
     float64 plain version, then the batched study through
-    ``cli.main(["study", "--fit-mode", "device-batched", ...])`` over the
-    reference's 90-dataset design (launch counters from 0), checked and
+    ``cli.main(["study", "--fit-mode", "device-batched", ...])`` over 36
+    datasets of the reference's design (launch counters from 0), checked and
     measured; then the batched path with ``ftol=0`` on the per-dataset
     study's dataset against that path's RMSEs. Returns the launches of the
     batched study's run."""
@@ -2339,7 +2372,8 @@ def study_batched_phase(torch, ck, cov, dev, st: dict) -> dict:
     # trajectory), which the per-lane statistics follow
     data_dir = os.path.join(out_dir, "GPDataSets")
     staged = [f"GPData_0.2_fieldMeas_{fs}_T{t}_{v:g}.csv"
-              for fs in (0, 1, 2) for v in (0.0, 0.1, 0.2) for t in range(10)]
+              for fs in (0, 1, 2) for v in (0.0, 0.1, 0.2)
+              for t in range(int(BATCHED_ARGS[1]))]
     order = [tio.parse_mse_filename(n.replace("GPData", "MSE")
                                     .replace(".csv", ".txt")) for n in staged]
     pick = os.path.join(data_dir, f"GPData_{STUDY_PICK}.csv")
@@ -2351,7 +2385,7 @@ def study_batched_phase(torch, ck, cov, dev, st: dict) -> dict:
           f"{len(names)} MSE files of 8 metrics, {len(hyps)} hyperparameter "
           f"files, {len(gpres)} GPRes grids (2,000 x 8), results.csv with "
           f"{len(rows) - 1} rows, summary n={summary['overall']['n']} "
-          f"(the reference's {R}-dataset design)")
+          f"({R} datasets of the reference's 90-dataset design)")
     rm = [v for p in parsed.values() for k, v in p.items()
           if k.startswith("RMSE")]
     wm = [v for p in parsed.values() for k, v in p.items()
@@ -2697,12 +2731,38 @@ def lane_input_bytes(t) -> int:
     return per_lane * (1 if t.stride(0) == 0 else t.shape[0])
 
 
+def b1_exact(torch, X1, f1, X2, f2, v, ls, rho, noise, kern: str):
+    """B1's function in float64 with each squared distance summed from the
+    coordinates' differences. The plain composition (``ar1_cov_fused_plain``,
+    the JAX package's ``sqdist``) expands it into norms, which cancel at
+    far coordinates even in float64: at the mission arena's padding rows
+    (coordinate 1e6) and a lengthscale of 0.22, a zero distance came out
+    0.0078 (0.4 % of the covariance) where B1's was exact."""
+    from mfgp_tpu_torch.ops import kernels as _k
+
+    X1, X2, v, ls, rho = (t.double() for t in (X1, X2, v, ls, rho))
+    W = _k.ar1_fidelity_weights(rho, v.shape[0])
+    out = 0.0
+    for m in range(v.shape[0]):
+        r2 = (((X1[:, None, :] - X2[None, :, :]) / ls[m]) ** 2).sum(-1)
+        if kern == "rbf":
+            base = torch.exp(-0.5 * r2)
+        else:
+            r = torch.sqrt(r2 + 1e-36)
+            base = (1.0 + _k._SQRT3 * r) * torch.exp(-_k._SQRT3 * r)
+        out = out + (W[m][f1][:, None] * W[m][f2][None, :]) * (v[m] * base)
+    if noise is not None:
+        out = out + torch.diag(noise.double())
+    return out
+
+
 def planner_lane_check(torch, ck, key: str, args, kw) -> dict:
     """One recorded lane-axis launch held as ``b1_lane_checks`` holds the
     study's: every lane bit-identical to a single-lane launch on its inputs
     (with the symmetric half grid where the lane launch took it), a
     symmetric launch bit-identical to its full grid, every lane within
-    1e-5 x max(1, largest entry) of the float64 plain version. Then timed
+    1e-5 x max(1, largest entry) of B1's function in float64
+    (``b1_exact``). Then timed
     on CUDA events (the wrapper's call, and the kernel alone on inputs
     prepped once) beside the plain version, with its bound (bytes: the
     output written once, each input read once, a broadcast input once for
@@ -2734,10 +2794,8 @@ def planner_lane_check(torch, ck, key: str, args, kw) -> dict:
                                None if nz is None else nz[l], kern)
         if not torch.equal(got[l].view(torch.int32), one.view(torch.int32)):
             differ.append(l)
-        ref = ck.ar1_cov_fused_plain(
-            A[l].double(), fa[l], B[l].double(), fb[l], v[l].double(),
-            ls[l].double(), rho[l].double(),
-            None if nz is None else nz[l].double(), kern)
+        ref = b1_exact(torch, A[l], fa[l], B[l], fb[l], v[l], ls[l], rho[l],
+                       None if nz is None else nz[l], kern)
         err = max(err, max_err(got[l], ref))
         top = max(top, float(ref.abs().max()))
         del one, ref
@@ -3775,9 +3833,12 @@ class DevicePlanProbe(ExploreProbe):
 
     def _loop(self, orig):
         def run(rig, *a, **kw):
+            n0 = self.ck.LAUNCHES["ar1_cov_fused"]
             st = orig(rig, *a, **kw)
             s = dict(rig.stats, cost=rig.cost, lanes=int(a[0].shape[0]))
-            self.extra += s["b1_captured"] * max(s["replays"] - 1, 0)
+            # the loop's launches that the counter did not see: replays
+            self.extra += s["b1_launches"] - (
+                self.ck.LAUNCHES["ar1_cov_fused"] - n0)
             self.plans.append(s)
             if self.cur is not None:
                 self.cur.setdefault("loops", []).append(s)
@@ -3881,12 +3942,397 @@ def device_planner_phase(torch, ck, cov, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 14. the mission (sim/mission_device.py, hw/runtime_device.py)
+# ---------------------------------------------------------------------------
+# the command line at its defaults (MFEGP, --budget 80 --bd 4 --plan-iters
+# 40 --e-max 16, kinematic flight), then the refits, dynamic flight, the
+# ensemble and the campaign
+MISSION_RUNS = (
+    ("a_kinematic", ["mission"]),
+    ("b_refit", ["mission", "--variant", "MFGP", "--update-hyps",
+                 "--fit-restarts", "4"]),
+    ("c_dynamic", ["mission", "--variant", "SFEGP", "--flight", "dynamic"]),
+    ("c_dynamic_stride4", ["mission", "--variant", "SFEGP", "--flight",
+                           "dynamic", "--glide-stride", "4"]),
+    ("d_ensemble8", ["mission", "--ensemble", "8"]),
+    ("e_campaign", ["campaign"]),
+)
+# the command line's mission defaults, for the yardsticks of (a) and (d)
+# (ExperimentConfig refits by default; the command line only with
+# --update-hyps)
+MISSION_EXP = dict(multi_fidelity=True, ergodic=True, B=80.0, BD=4,
+                   update_hyps=False)
+# traced by torch.profiler: a warm mission of one of the defaults' 20-unit
+# tranches with 10 planner iterations (one such replan at the defaults' 40
+# is ~1 million device events, ~100 s of the profiler's work)
+MISSION_PROFILED = dict(multi_fidelity=True, ergodic=True, B=20.0, BD=1,
+                        update_hyps=False)
+MISSION_PROFILED_ITERS = 10
+MISSION_RMSE_RATIO = 2.0  # float32 within 2x of float64 (PR 8's bar)
+MISSION_ENSEMBLE_RTOL = 1e-6  # member 0 vs the solo run, float64
+MISSION_EAGER_TICKS = 200  # eager ticks timed (the eager loop is slow)
+MISSION_STRIDE_TICKS = 2048  # ticks of the glide-stride comparison
+
+
+class MissionProbe:
+    """Records missions as the CLI drives them, by wrapping
+    ``DeviceMission``'s replan body and stages, ``DeviceRIG._run``,
+    ``DeviceRuntime._fly`` and B1's lane-axis wrapper at class or module
+    level: per replan the seconds of each stage on a CUDA-synchronised host
+    clock and B1's launches (a launch captured in the planner's graph
+    counts once in ``LAUNCHES`` and runs once per replay: ``extra`` adds
+    the replays), the planner's stats, the runtime's flight stats and the
+    first flight's inputs, each run's mission, result and wall, and the
+    first lane-axis B1 launch of each shape. ``restore`` puts everything
+    back; the package is unchanged."""
+
+    STAGES = (("_eid_stage", "eid"), ("_plan_stage", "plan"),
+              ("_flight_stage", "flight"), ("_extend_arena", "extend"),
+              ("_refit_stage", "refit"))
+
+    def __init__(self, torch, ck, md, rd, rtd):
+        self.torch, self.ck = torch, ck
+        self.saved, self.runs, self.cur, self.rep = [], [], None, None
+        self.extra, self.flights, self.lanes, self.first_flight = 0, [], {}, None
+        self.record_lanes = True
+        M = md.DeviceMission
+        self._wrap(M, "run", self._run("run"))
+        self._wrap(M, "run_ensemble", self._run("run_ensemble"))
+        self._wrap(M, "_body", self._body)
+        for name, stage in self.STAGES:
+            self._wrap(M, name, self._stage(stage))
+        self._wrap(rd.DeviceRIG, "_run", self._plan)
+        self._wrap(rtd.DeviceRuntime, "_fly", self._fly)
+        self._wrap(ck, "ar1_cov_fused_lanes", self._lanes)
+
+    def restore(self):
+        for obj, name, orig in reversed(self.saved):
+            setattr(obj, name, orig)
+
+    def _wrap(self, obj, name, make):
+        orig = getattr(obj, name)
+        self.saved.append((obj, name, orig))
+        setattr(obj, name, make(orig))
+
+    def _b1(self) -> int:
+        return self.ck.LAUNCHES["ar1_cov_fused"] + self.extra
+
+    def _sync_clock(self):
+        self.torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def _run(self, kind):
+        def make(orig):
+            def run(mission, *a, **kw):
+                outer, self.cur = self.cur, {"mission": mission, "kind": kind,
+                                             "replans": []}
+                t0 = self._sync_clock()
+                try:
+                    res = orig(mission, *a, **kw)
+                    self.cur.update(result=res,
+                                    wall_s=self._sync_clock() - t0,
+                                    refits=list(mission.refits))
+                    self.runs.append(self.cur)
+                finally:
+                    self.cur = outer
+                return res
+            return run
+        return make
+
+    def _body(self, orig):
+        def run(mission, r, *a, **kw):
+            self.rep = {"replan": r}
+            b1, t0 = self._b1(), self._sync_clock()
+            out = orig(mission, r, *a, **kw)
+            self.rep.update(seconds=self._sync_clock() - t0,
+                            b1=self._b1() - b1)
+            if self.cur is not None:
+                self.cur["replans"].append(self.rep)
+            return out
+        return run
+
+    def _stage(self, stage):
+        def make(orig):
+            def run(obj, *a, **kw):
+                t0 = self._sync_clock()
+                out = orig(obj, *a, **kw)
+                if self.rep is not None:
+                    self.rep[stage] = self._sync_clock() - t0
+                return out
+            return run
+        return make
+
+    def _plan(self, orig):
+        def run(rig, *a, **kw):
+            n0 = self.ck.LAUNCHES["ar1_cov_fused"]
+            st = orig(rig, *a, **kw)
+            s = dict(rig.stats, lanes=int(a[0].shape[0]))
+            self.extra += s["b1_launches"] - (
+                self.ck.LAUNCHES["ar1_cov_fused"] - n0)
+            if self.rep is not None:
+                self.rep["planner"] = s
+            return st
+        return run
+
+    def _fly(self, orig):
+        def run(rt, plan, carry, noise, t_cap):
+            if self.first_flight is None:
+                self.first_flight = (rt, plan, {k: v.clone() for k, v in
+                                                carry.items()},
+                                     noise.clone(), t_cap)
+            out = orig(rt, plan, carry, noise, t_cap)
+            if self.rep is not None:
+                self.rep["fly"] = dict(rt.last_fly, stride=rt.glide_stride)
+            return out
+        return run
+
+    def _lanes(self, orig):
+        def run(*args, **kw):
+            if self.record_lanes:
+                key = lane_launch_shape(self.ck, args, kw)
+                self.lanes.setdefault(key, (args, kw))
+            return orig(*args, **kw)
+        return run
+
+
+def mission_stage_table(rec) -> list:
+    """Per replan: its seconds by stage, B1's launches (replays counted)
+    and the planner's replays and capture seconds."""
+    out = []
+    for r in rec["replans"]:
+        p = r.get("planner", {})
+        out.append({k: r.get(k) for k in ("replan", "seconds", "eid", "plan",
+                                           "flight", "extend", "refit",
+                                           "b1")}
+                   | {"plan_replays": p.get("replays"),
+                      "plan_capture_s": p.get("capture_s"),
+                      "plan_b1_captured": p.get("b1_captured"),
+                      "fly": r.get("fly")})
+    return out
+
+
+def mission_cli(torch, cli, argv) -> tuple:
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return (json.loads(buf.getvalue().strip().splitlines()[-1]),
+            time.perf_counter() - t0)
+
+
+def mission_tick_times(torch, rtd, flight) -> dict:
+    """One recorded flight (the first of the dynamic run: its plan, carry
+    and noise) flown again by fresh runtimes over its first
+    ``MISSION_STRIDE_TICKS`` ticks: eager on its first
+    ``MISSION_EAGER_TICKS``; replayed, and with ``glide_stride`` 4; and a
+    50 s prefix of it with the early stop against the same running all
+    the ticks. Seconds on a CUDA-synchronised host clock, each timed
+    flight after one that captured its graphs."""
+    rt0, plan, carry, noise, t_cap = flight
+    cap = min(t_cap, MISSION_STRIDE_TICKS)
+    n_live = int(min(int((torch.ceil(plan.t_end / rt0.cfg.dt) + 1).max()),
+                     cap))
+    prefix = plan._replace(t_end=torch.clamp_max(plan.t_end, 50.0))
+
+    def runtime(**kw):
+        return rtd.DeviceRuntime(rt0.agent, rt0.cfg, field=rt0.field,
+                                 max_depth=rt0.max_depth, dtype=rt0.dtype,
+                                 w_cap=rt0.w_cap, l_cap=rt0.l_cap,
+                                 device=rt0.device, **kw)
+
+    def fly(rt, p=plan, reps=2):
+        for _ in range(reps):
+            s, _ = wall(torch, lambda: rt.fly(p, carry, noise, cap))
+        return s, dict(rt.last_fly)
+
+    cap_e = min(cap, MISSION_EAGER_TICKS)
+    s_e, _ = wall(torch, lambda: runtime(graph=False, early_stop=False).fly(
+        plan, carry, noise, cap_e))
+    rt = runtime(early_stop=False)
+    s_r, st_r = fly(rt)
+    s_all, _ = fly(rt, prefix, reps=1)
+    rt.early_stop = True
+    s_stop, st_stop = fly(rt, prefix, reps=1)
+    s4, st4 = fly(runtime(early_stop=False, glide_stride=4))
+    return {"ticks": cap, "live_ticks": n_live,
+            "eager_us_per_tick": s_e / cap_e * 1e6, "eager_ticks": cap_e,
+            "replayed_us_per_tick": s_r / cap * 1e6, "replayed_s": s_r,
+            "replayed_stats": st_r,
+            "prefix_all_ticks_s": s_all, "prefix_early_stop_s": s_stop,
+            "prefix_early_stop_stats": st_stop,
+            "stride4_s": s4, "stride4_stats": st4,
+            "stride4_us_per_fine_tick": s4 / cap * 1e6}
+
+
+def mission_phase(torch, ck, cov, dev) -> dict:
+    """Phase 14 (see the module docstring). Returns the launches of the
+    command-line runs (a)-(e), counted from 0 just before the first, B1's
+    with every replay of a launch captured in the planner's graph."""
+    from mfgp_tpu_torch import cli
+    from mfgp_tpu_torch.hw import runtime_device as rtd
+    from mfgp_tpu_torch.planning import rig_device as rd
+    from mfgp_tpu_torch.sim import mission_device as md
+    from mfgp_tpu_torch.utils.configs import ExperimentConfig
+
+    parts, t_phase = {}, time.perf_counter()
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    probe = MissionProbe(torch, ck, md, rd, rtd)
+    try:
+        outs = {}
+        ck.reset_launches()
+        probe.extra = 0
+        torch.cuda.reset_peak_memory_stats()
+        for label, argv in MISSION_RUNS:
+            n0 = len(probe.runs)
+            doc, secs = mission_cli(torch, cli, argv)
+            outs[label] = (doc, secs, probe.runs[n0:])
+            if label == "a_kinematic":
+                peak_a = torch.cuda.max_memory_allocated() / 1e9
+            part(label)
+        launches = dict(ck.LAUNCHES)
+        counted = launches["ar1_cov_fused"]
+        launches["ar1_cov_fused"] += probe.extra
+        probe.record_lanes = False
+        smi = nvidia_smi()
+
+        # (a) kinematic at the defaults: float32, then float64 on the same
+        # seed, and one flight's filter eager against a graph
+        doc, secs, recs = outs["a_kinematic"]
+        cold = recs[0]
+        exp = ExperimentConfig(**MISSION_EXP)
+        m64 = md.DeviceMission(exp, seed=0, dtype=torch.float64, device=dev)
+        s64, r64 = wall(torch, m64.run)
+        res32 = cold["result"]
+        filt = explore_filter_times(torch, cold["mission"].kf_model,
+                                    res32.flown[0][res32.flown_mask[0]])
+        mw = md.DeviceMission(ExperimentConfig(**MISSION_PROFILED), seed=1,
+                              plan_iters=MISSION_PROFILED_ITERS, device=dev)
+        mw.run()
+        idle = device_idle_share(torch, mw.run)
+        part("a_yardsticks")
+        check("mission (a) kinematic",
+              doc["replans"] >= 1 and np.isfinite(doc["rmse"])
+              and doc["rmse"] <= MISSION_RMSE_RATIO * r64.rmse
+              and all(r["b1"] > 0 for r in cold["replans"]),
+              f"{doc['replans']} replans, n_data {doc['n_data']}, RMSE "
+              f"float32 {doc['rmse']:.6g} vs float64 {r64.rmse:.6g} "
+              f"(<= {MISSION_RMSE_RATIO}x), B1 per replan "
+              f"{[r['b1'] for r in cold['replans']]} (> 0 each)")
+        emit("mission_kinematic", nvidia_smi=smi, cli=doc, cli_s=secs,
+             rmse_f32=doc["rmse"], rmse_f64=r64.rmse, seconds_f64=s64,
+             replans_f64=r64.n_replans, ratio_to_f64=doc["rmse"] / r64.rmse,
+             finite_test_mu=bool(np.isfinite(res32.test_mu).all()),
+             filter=filt, peak_gb=peak_a, idle=idle,
+             idle_run=dict(MISSION_PROFILED,
+                           plan_iters=MISSION_PROFILED_ITERS),
+             stages=mission_stage_table(cold),
+             stages_warm=mission_stage_table(recs[1]))
+
+        # (b) refits with 4 restarts
+        doc, secs, recs = outs["b_refit"]
+        fits = recs[0]["refits"]
+        ok = (len(fits) >= 1 and all(
+            np.all(np.isfinite(f["f"])) and np.all(np.asarray(f["f"])
+                                                   <= np.asarray(f["f_start"]))
+            for f in fits) and all(r["b1"] > 0 for r in recs[0]["replans"]))
+        check("mission (b) refits", ok,
+              f"{len(fits)} refits: NLML start->end "
+              f"{[(f['f_start'][0], f['f'][0]) for f in fits]} (finite, "
+              f"never above the warm start), B1 per replan "
+              f"{[r['b1'] for r in recs[0]['replans']]}")
+        emit("mission_refit", nvidia_smi=smi, cli=doc, cli_s=secs,
+             refits=fits, stages=mission_stage_table(recs[0]))
+
+        # (c) dynamic flight
+        check("mission (c) a flight", probe.first_flight is not None,
+              "the dynamic runs flew a plan")
+        ticks = (mission_tick_times(torch, rtd, probe.first_flight)
+                 if probe.first_flight is not None else None)
+        part("c_tick_times")
+        for label in ("c_dynamic", "c_dynamic_stride4"):
+            doc, secs, recs = outs[label]
+            res = recs[0]["result"]
+            check(f"mission (c) {label}",
+                  res.n_replans >= 1 and not res.meas_overflow
+                  and all(r["tracking_rmse"] > 0.01 and r["flown_budget"] > 0
+                          for r in res.replans),
+                  f"{res.n_replans} replans, tracking RMSE "
+                  f"{[r['tracking_rmse'] for r in res.replans]}, flown "
+                  f"budget {[r['flown_budget'] for r in res.replans]}, "
+                  f"meas_overflow {res.meas_overflow}")
+            emit("mission_dynamic", run=label, nvidia_smi=smi, cli=doc,
+                 cli_s=secs, stages=mission_stage_table(recs[0]),
+                 **({"ticks": ticks} if label == "c_dynamic" else {}))
+
+        # (d) the ensemble, and member 0 against the solo run in float64
+        doc, secs, recs = outs["d_ensemble8"]
+        ens64 = md.DeviceMission(exp, seed=0, dtype=torch.float64,
+                                 device=dev)
+        s_e64, e64 = wall(torch, lambda: ens64.run_ensemble(8))
+        e0 = e64[0]
+        # warm against warm: the command line's ensemble run captures the
+        # 8-lane graphs, so one float32 mission times its second solo run
+        # against its second 8-member ensemble
+        mw8 = md.DeviceMission(exp, seed=0, device=dev)
+        mw8.run()
+        s_solo_w, _ = wall(torch, mw8.run)
+        mw8.run_ensemble(8)
+        s_ens_w, _ = wall(torch, lambda: mw8.run_ensemble(8))
+        same = (e0.n_replans == r64.n_replans
+                and np.array_equal(e0.flown_mask, r64.flown_mask)
+                and np.allclose(e0.flown, r64.flown, rtol=1e-9, atol=1e-9))
+        check("mission (d) ensemble member 0 = solo (float64)",
+              same and abs(e0.rmse - r64.rmse)
+              <= MISSION_ENSEMBLE_RTOL * abs(r64.rmse),
+              f"replans {e0.n_replans} vs {r64.n_replans}, chains equal "
+              f"{same}, RMSE {e0.rmse:.12g} vs {r64.rmse:.12g}")
+        emit("mission_ensemble", nvidia_smi=smi, cli=doc, cli_s=secs,
+             cli_ensemble_over_warm_solo=doc["ensemble_seconds"]
+             / doc["launch_seconds_warm"],
+             warm_ensemble8_s=s_ens_w, warm_solo_s=s_solo_w,
+             warm_ensemble_over_warm_solo=s_ens_w / s_solo_w,
+             f64_ensemble8_s=s_e64,
+             stages=mission_stage_table(
+                 [r for r in recs if r["kind"] == "run_ensemble"][0]))
+        part("d_f64")
+
+        # (e) the campaign
+        doc, secs, recs = outs["e_campaign"]
+        check("mission (e) campaign",
+              doc["runs"] == 20 and all(
+                  np.isfinite(doc[v]["rmse"]).all()
+                  for v in ("MFEGP", "MFGP", "SFEGP", "SFGP")),
+              f"{doc['runs']} runs, RMSE means "
+              f"{[doc[v]['rmse_mean'] for v in ('MFEGP', 'MFGP', 'SFEGP', 'SFGP')]}")
+        emit("mission_campaign", nvidia_smi=smi, cli=doc, cli_s=secs)
+
+        # (f) B1 at the mission's launch shapes
+        b1 = {k: planner_lane_check(torch, ck, "mission " + k, a, kw)
+              for k, (a, kw) in list(probe.lanes.items())[:12]}
+        emit("mission_b1", nvidia_smi=smi, times=b1)
+        part("f_b1")
+        check("mission launches", launches["ar1_cov_fused"] > 0,
+              f"kernel launches over the {len(MISSION_RUNS)} runs: "
+              f"{launches} (B1: {counted} counted, of them captured once "
+              f"and replayed: +{probe.extra})")
+        emit("mission_seconds", **parts)
+    finally:
+        probe.restore()
+    return launches
+
+
 NEW_PHASES = ("study", "study_f64", "study_batched", "nigp", "recursive",
-              "planner", "explore", "device_planner")
+              "planner", "explore", "device_planner", "mission")
 
 
 def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
-    """Phases 7 to 13 in turn (the batched study, 10, after the study's
+    """Phases 7 to 14 in turn (the batched study, 10, after the study's
     phases, whose dataset it compares with); returns each path's launches
     by phase."""
     launches = {}
@@ -3919,11 +4365,14 @@ def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
     if "device_planner" in only:
         launches["device_planner"] = device_planner_phase(torch, ck, cov,
                                                           dev)
+    torch.cuda.empty_cache()
+    if "mission" in only:
+        launches["mission"] = mission_phase(torch, ck, cov, dev)
     return launches
 
 
 def only_phases(names) -> int:
-    """``--only``: the build and the named phases of 7 to 13; no result
+    """``--only``: the build and the named phases of 7 to 14; no result
     line."""
     import torch
 

@@ -9,18 +9,20 @@
   python -m mfgp_tpu_torch.cli aggregate 'GPResults/MSE_*.txt' --out results.csv
   python -m mfgp_tpu_torch.cli study    --out D [--fit-mode device] ...
   python -m mfgp_tpu_torch.cli explore  [--variant MFEGP|SFGP|...] --out D
+  python -m mfgp_tpu_torch.cli mission  [--variant MFEGP] [--flight dynamic]
+  python -m mfgp_tpu_torch.cli campaign [--variants MFEGP,MFGP,SFEGP,SFGP]
   python -m mfgp_tpu_torch.cli infogain-test      # info-gain identity check
 
 Every command runs on the card and raises where there is no CUDA device,
 unless ``--cpu`` (before the command) asks for the CPU. Each prints one
 JSON document with the JAX package's keys on standard output; the trainers
 and the study also report, on standard error, how many WMSE metrics were
-redone in float64 (on the same device). ``explore`` runs its models in
-float32 on the card and in float64 with ``--cpu``, what the JAX package
-computes on the TPU and on the CPU. The other commands of the JAX package
-(mission, mission-server, campaign, serve, plot) are not here yet, nor is
-``explore``'s device planner (``--planner device``, ``--plan-ensemble``),
-which raises.
+redone in float64 (on the same device). ``explore``, ``mission`` and
+``campaign`` run their models' covariance tiles in float32 on the card and
+everything in float64 with ``--cpu``, what the JAX package computes on the
+TPU and on the CPU. Not here yet (ROADMAP A7): the ``serve`` and ``plot``
+commands, and the mission server (``mission-server``, ``mission
+--submit``) and ``campaign --plot``, which raise.
 """
 
 from __future__ import annotations
@@ -217,6 +219,106 @@ def cmd_explore(args):
     print(json.dumps(out))
 
 
+def _mission(args, exp, seed: int, device):
+    from mfgp_tpu_torch.sim.mission_device import DeviceMission
+
+    return DeviceMission(exp, seed=seed, flight=args.flight,
+                         plan_iters=args.plan_iters, e_max=args.e_max,
+                         fit_restarts=args.fit_restarts,
+                         glide_stride=args.glide_stride, device=device)
+
+
+def cmd_mission(args):
+    """The whole exploration experiment as one device program
+    (sim.mission_device.DeviceMission): a cold run, then a second seed on
+    the built planner and runtime (the JAX package's warm run)."""
+    import time
+
+    if args.submit:
+        raise NotImplementedError("mission --submit goes through the "
+                                  "mission server: ROADMAP A7")
+    device = _device(args)
+    from mfgp_tpu_torch.utils.configs import ExperimentConfig
+
+    variant = args.variant.upper()
+    exp = ExperimentConfig(multi_fidelity=variant.startswith("MF"),
+                           ergodic=variant in ("MFEGP", "SFEGP"),
+                           ergodic_metric=args.ergodic_metric,
+                           info_cost=args.info_cost,
+                           update_hyps=args.update_hyps,
+                           B=args.budget, BD=args.bd)
+    mission = _mission(args, exp, args.seed, device)
+    t0 = time.perf_counter()
+    res = mission.run(mode=args.mode)
+    cold = time.perf_counter() - t0
+    # warm: a new seed on the same mission (its planner's and runtime's
+    # captured graphs and built state kept)
+    t0 = time.perf_counter()
+    mission.seed = args.seed + 1
+    res2 = mission.run(mode=args.mode)
+    warm = time.perf_counter() - t0
+    mission.seed = args.seed
+    out = {
+        "variant": variant, "replans": res.n_replans,
+        "n_data": int(res.gp_data.data.shape[0]),
+        "budget_used": res.budget_used, "rmse": res.rmse,
+        "replans2": res2.n_replans, "rmse2": res2.rmse,
+        "launch_seconds_cold": round(cold, 3),
+        "launch_seconds_warm": round(warm, 3),
+    }
+    if args.flight == "dynamic" and res.replans:
+        out["tracking_rmse"] = [round(r["tracking_rmse"], 4)
+                                for r in res.replans]
+        out["flown_budget"] = round(
+            sum(r["flown_budget"] for r in res.replans), 3)
+    if args.ensemble > 1:
+        t0 = time.perf_counter()
+        ens = mission.run_ensemble(args.ensemble, mode=args.mode,
+                                   seed_chunk=args.seed_chunk)
+        out["ensemble_seconds"] = round(time.perf_counter() - t0, 3)
+        out["ensemble_rmse"] = [round(e.rmse, 4) for e in ens]
+        out["ensemble_replans"] = [e.n_replans for e in ens]
+    if args.out:
+        mission.save_artifacts(res, args.out)
+        out["artifacts"] = args.out
+    print(json.dumps(out))
+
+
+def cmd_mission_server(args):
+    raise NotImplementedError("mission-server (serve.MissionService) is "
+                              "not ported: ROADMAP A7")
+
+
+def cmd_campaign(args):
+    """The reference's 4-driver experiment campaign (SURVEY C25) x repeat
+    seeds, one mission ensemble per variant."""
+    import time
+
+    if args.plot:
+        raise NotImplementedError("campaign --plot goes through "
+                                  "viz.plot_campaign: ROADMAP A7")
+    device = _device(args)
+    from mfgp_tpu_torch.sim.mission_device import run_campaign
+
+    t0 = time.perf_counter()
+    camp = run_campaign(
+        variants=[v.strip() for v in args.variants.split(",")],
+        n_seeds=args.seeds, seed=args.seed,
+        exp_kw=dict(B=args.budget, BD=args.bd,
+                    update_hyps=args.update_hyps),
+        mode=args.mode, seed_chunk=args.seed_chunk,
+        plan_iters=args.plan_iters, e_max=args.e_max, device=device)
+    out = {"campaign_seconds": round(time.perf_counter() - t0, 3),
+           "runs": sum(len(c["rmse"]) for c in camp.values())}
+    for v, c in camp.items():
+        out[v] = {"rmse_mean": round(float(np.mean(c["rmse"])), 4),
+                  "rmse": [round(r, 4) for r in c["rmse"]],
+                  "replans": c["replans"],
+                  "budget_used": [round(b, 2) for b in c["budget_used"]],
+                  "seconds": round(c["seconds"], 3)}
+    print(json.dumps(out))
+
+
 def cmd_infogain_test(args):
     """BASELINE config 4 sanity: the mutual-information identity
     (reference/informationGainTest.py) as a quick numerical check, in
@@ -314,6 +416,77 @@ def build_parser():
                    choices=["kinematic", "dynamic"],
                    help="dynamic = fly plans through the full "
                         "sense->estimate->control runtime (hw/runtime.py)")
+
+    p = sub.add_parser("mission", help="the whole experiment as one "
+                       "device program")
+    p.set_defaults(fn=cmd_mission)
+    p.add_argument("--variant", default="MFEGP", type=lambda s: s.upper(),
+                   choices=["MFEGP", "MFGP", "SFEGP", "SFGP"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--budget", type=float, default=80.0)
+    p.add_argument("--bd", type=int, default=4)
+    p.add_argument("--plan-iters", type=int, default=40)
+    p.add_argument("--e-max", type=int, default=16,
+                   help="best-path edge capacity per replan")
+    p.add_argument("--mode", default="auto",
+                   choices=["auto", "one", "stepped"],
+                   help="one = every replan from carried device state; "
+                        "stepped = spans of replans with a synchronisation "
+                        "between them; auto = one (CUDA has no per-launch "
+                        "ceiling)")
+    p.add_argument("--seed-chunk", type=int, default=None,
+                   help="with --ensemble: members per pass (default all)")
+    p.add_argument("--ergodic-metric", default="kl",
+                   choices=["kl", "fourier"])
+    p.add_argument("--info-cost", default="sequential",
+                   choices=["sequential", "batch"])
+    p.add_argument("--update-hyps", action="store_true",
+                   help="per-replan L-BFGS hyperparameter refits instead of "
+                        "frozen hyperparameters")
+    p.add_argument("--flight", default="kinematic",
+                   choices=["kinematic", "dynamic"],
+                   help="dynamic = fly each plan through the device "
+                        "runtime (hw/runtime_device.py)")
+    p.add_argument("--ensemble", type=int, default=1,
+                   help="also run K complete missions (seeds seed..seed+"
+                        "K-1) as lanes of one program")
+    p.add_argument("--fit-restarts", type=int, default=1,
+                   help="with --update-hyps: restart-batched refits (warm "
+                        "start + K-1 perturbed log-space starts, best "
+                        "finite NLML kept)")
+    p.add_argument("--glide-stride", type=int, default=1,
+                   help="with --flight dynamic: steady GLIDE windows "
+                        "advance with one coarse tick of K*dt")
+    p.add_argument("--out", default=None,
+                   help="write the reference's per-replan artifact set "
+                        "(plannedTraj{n}.csv, EID{n}.csv, hyps.csv, "
+                        "GPData.csv, replans.csv) to this directory")
+    p.add_argument("--submit", default=None, metavar="URL",
+                   help="submit to a mission server (not ported: ROADMAP "
+                        "A7; raises)")
+
+    p = sub.add_parser("mission-server", help="not ported (ROADMAP A7); "
+                       "raises")
+    p.set_defaults(fn=cmd_mission_server)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+
+    p = sub.add_parser("campaign", help="the reference's 4-driver campaign "
+                       "x seeds, one mission ensemble per variant")
+    p.set_defaults(fn=cmd_campaign)
+    p.add_argument("--variants", default="MFEGP,MFGP,SFEGP,SFGP")
+    p.add_argument("--seeds", type=int, default=5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--budget", type=float, default=20.0)
+    p.add_argument("--bd", type=int, default=2)
+    p.add_argument("--plan-iters", type=int, default=40)
+    p.add_argument("--e-max", type=int, default=16)
+    p.add_argument("--update-hyps", action="store_true")
+    p.add_argument("--mode", default="auto",
+                   choices=["auto", "one", "stepped"])
+    p.add_argument("--seed-chunk", type=int, default=None)
+    p.add_argument("--plot", default=None,
+                   help="campaign figure (not ported: ROADMAP A7; raises)")
 
     p = sub.add_parser("aggregate"); p.set_defaults(fn=cmd_aggregate)
     p.add_argument("pattern"); p.add_argument("--out")

@@ -108,17 +108,27 @@ def _run_eager(step, x, P, inputs, n_steps: int):
     return torch.stack(out, dim=1)
 
 
-def _run_graphed(step, x, P, inputs, n_steps: int, chunk: int):
+def _run_graphed(step, x, P, inputs, n_steps: int, chunk: int,
+                 cache: dict | None = None):
     """The same loop as ``chunk``-step CUDA graphs: the inputs of one chunk
     are copied into fixed buffers, the graph replays ``chunk`` steps on
     them and on the carried (x, P), and its outputs are copied out. The
     steps past ``n_steps`` in the last chunk run on repeats of the last
-    input and are dropped."""
+    input and are dropped. ``cache`` (a dict the caller keeps for one
+    model) holds the graph and its buffers per shape, so a later call of
+    the same shapes replays it without capturing."""
     n_chunks = -(-n_steps // chunk)
     pad = n_chunks * chunk - n_steps
     if pad:
         inputs = [torch.cat([a, a[:, -1:].expand(-1, pad, *a.shape[2:])], 1)
                   for a in inputs]
+    key = (chunk, tuple(x.shape)) + tuple(tuple(a.shape) for a in inputs)
+    if cache is not None and key in cache:
+        graph, bufs, x_buf, P_buf, out_buf = cache[key]
+        x_buf.copy_(x)
+        P_buf.copy_(P)
+        return _replay(graph, bufs, inputs, out_buf, n_chunks, chunk,
+                       n_steps)
     bufs = [torch.empty_like(a[:, :chunk]) for a in inputs]
     x_buf, P_buf = x.clone(), P.clone()
 
@@ -144,6 +154,12 @@ def _run_graphed(step, x, P, inputs, n_steps: int, chunk: int):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out_buf = run_chunk()
+    if cache is not None:
+        cache[key] = (graph, bufs, x_buf, P_buf, out_buf)
+    return _replay(graph, bufs, inputs, out_buf, n_chunks, chunk, n_steps)
+
+
+def _replay(graph, bufs, inputs, out_buf, n_chunks, chunk, n_steps):
     out = []
     for c in range(n_chunks):
         for b, a in zip(bufs, inputs):
@@ -155,7 +171,8 @@ def _run_graphed(step, x, P, inputs, n_steps: int, chunk: int):
 
 def filter_trajectory(model: KFModel, t, pos_true, seed: int = 0,
                       noise=None, generator: torch.Generator | None = None,
-                      graph_steps: int | None = None):
+                      graph_steps: int | None = None,
+                      graph_cache: dict | None = None):
     """Run the estimate-generation filter over recorded trajectories.
 
     t: (T,) timestamps and pos_true: (T, 3) ground-truth positions, or a
@@ -176,7 +193,10 @@ def filter_trajectory(model: KFModel, t, pos_true, seed: int = 0,
     velocity between rows j-1 and j.
 
     ``graph_steps``: steps per CUDA graph on the card (default 128; 0 runs
-    the loop eagerly, as a CPU model always does).
+    the loop eagerly, as a CPU model always does). ``graph_cache``: a dict
+    the caller keeps for this model, in which the captured graph of each
+    shape is kept and replayed by later calls (a flight per replan of a
+    mission) instead of captured anew.
     """
     dtype, device = model.P0.dtype, model.P0.device
     z = dict(dtype=dtype, device=device)
@@ -222,7 +242,7 @@ def filter_trajectory(model: KFModel, t, pos_true, seed: int = 0,
             out = torch.zeros((B, 0, 9), **z)
         elif graph_steps and device.type == "cuda":
             out = _run_graphed(step, x0, P0, inputs, n,
-                               min(graph_steps, n))
+                               min(graph_steps, n), graph_cache)
         else:
             out = _run_eager(step, x0, P0, inputs, n)
     cols = {"t": t[:, :-1], "pos": pos_prev, "xh": out[..., 0:3],

@@ -31,10 +31,11 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # C entry points: name -> argument types; every one returns cudaError_t as int
 _SIGNATURES = {
-    # A, wA, B, wB, noise, out, lo, ldo, L, N, M, F, D, kern, sym, lane
-    # strides of A, wA, B, wB, noise and out (lo), stream
-    "mfgp_ar1_cov_f32": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                         _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _P],
+    # A, wA, B, wB, ils, noise, out, lo, ldo, L, N, M, F, D, kern, sym,
+    # lane strides of A, wA, B, wB, ils, noise and out (lo), stream
+    "mfgp_ar1_cov_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                         _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                         _P],
     # src, rows, cols, ld_src, transpose, hi, lo, ld_out, stream
     "mfgp_tf32_split_f32": [_P, _I, _I, _I, _I, _P, _P, _I, _P],
     # Linv, LinvT hi, lo, ldt, alpha, A, w, X, N, F, D, kern, kdiag, sv,

@@ -117,30 +117,38 @@ def _ar1_cov_bwd(kern: str, variances, lengthscales, rhos, X, fid, Ct):
     """Cotangents of (variances, lengthscales, rhos) of the AR1 training Gram
     for a general (possibly asymmetric) cotangent ``Ct``
     (``mfgp_tpu/ops/covariance.py:159-230``). With T_m = v_m (w_m w_m^T) o
-    K_m, A = Ct o T_m and [r | R] = A [1 | X], [c | C] = A^T [1 | X]:
+    K_m, A = Ct o T_m and S_d = (x_d 1^T - 1 x_d^T)^2:
 
       v_bar_m     = sum(A) / v_m
-      l_bar_{m,d} = (x_d^2 . (r + c) - x_d . (R + C)_d) / l_{m,d}^3,
+      l_bar_{m,d} = sum(A o S_d) / l_{m,d}^3,
                     with A replaced for matern32 by Ct o v_m (w w^T) 3
                     e^{-sqrt3 r} (its dK/dl_d is not proportional to K)
       rho_bar_l   = sum_m g^T (B w_m) + g^T (B^T w_m),  B = Ct o v_m K_m,
                     g = d W[m, fid] / d rho_l
 
-    Each fidelity's N x N terms are built, contracted and freed before the
-    next (every float32 N x N buffer is 1.6 GB at N=20,000). Every argument
+    The distances are summed from differences, as B1 takes them (no
+    |x|^2 + |y|^2 - 2 x.y expansion, which cancels in float32 for close
+    points far from the origin at small lengthscales). Each fidelity's
+    N x N terms are built, contracted and freed before the next (every
+    float32 N x N buffer is 1.6 GB at N=20,000). Every argument
     may carry one leading lane axis (variances (L, F), lengthscales
     (L, F, D), rhos (L, F-1), X (L, N, D), fid (L, N), Ct (L, N, N)); the
     contractions never mix lanes."""
     F = variances.shape[-1]
-    N = X.shape[-2]
+    N, D = X.shape[-2:]
     W = _k.ar1_fidelity_weights(rhos, F)
     w = torch.gather(W, -1, fid[..., None, :].expand(*W.shape[:-1], N))
     inv_ls = 1.0 / lengthscales
-    ones_x = torch.cat([X.new_ones(X.shape[:-1] + (1,)), X], dim=-1)
     v_bar, l_bar = [], []
     rho_bar = [rhos.new_zeros(rhos.shape[:-1]) for _ in range(F - 1)]
+
+    def diff(d):  # x_id - x_jd, (..., N, N)
+        return X[..., :, None, d] - X[..., None, :, d]
+
     for m in range(F):
-        r2 = _k.sqdist(X, X, inv_ls[..., m, None, :])
+        r2 = X.new_zeros(X.shape[:-1] + (N,))
+        for d in range(D):
+            r2.add_((diff(d) * inv_ls[..., m, d, None, None]) ** 2)
         if kern == "rbf":
             B = torch.exp(-0.5 * r2)
         else:
@@ -156,19 +164,17 @@ def _ar1_cov_bwd(kern: str, variances, lengthscales, rhos, X, fid, Ct):
         wm = w[..., m, :]
         wprod = wm[..., :, None] * wm[..., None, :]
         A = B * wprod  # Ct o T_m
-        rA, cA = A @ ones_x, A.mT @ ones_x
-        del A
-        v_bar.append(torch.sum(rA[..., 0], dim=-1) / variances[..., m])
+        v_bar.append(torch.sum(A, dim=(-2, -1)) / variances[..., m])
         if kern == "rbf":
-            rE, cE = rA, cA
+            E = A
         else:
+            del A
             E = e3.mul_(vm * 3.0).mul_(Ct).mul_(wprod)
             del e3
-            rE, cE = E @ ones_x, E.mT @ ones_x
-            del E
         del wprod
-        quad = (torch.sum(X ** 2 * (rE[..., :1] + cE[..., :1]), dim=-2)
-                - torch.sum(X * (rE[..., 1:] + cE[..., 1:]), dim=-2))
+        quad = torch.stack([torch.sum(E * diff(d) ** 2, dim=(-2, -1))
+                            for d in range(D)], dim=-1)
+        del E
         l_bar.append(quad * inv_ls[..., m, :] ** 3)  # v_m is inside A / E
         if F > 1:
             Bw = (B @ wm[..., :, None])[..., 0]
@@ -213,10 +219,15 @@ def ar1_cov_diff(variances, lengthscales, rhos, X, fid,
                  kernel: str) -> torch.Tensor:
     """Differentiable AR1 training covariance (without noise): the
     ``_AR1TrainCov`` Function on the card, autograd through the plain
-    composition elsewhere."""
+    composition elsewhere. With one leading lane axis on every argument
+    (X (L, N, D), ...) it is L Grams (L, N, N), each lane its own."""
     if use_cuda_kernels(X, kernel):
         return _AR1TrainCov.apply(kernel, variances, lengthscales, rhos, X,
                                   fid)
+    if X.dim() == 3:
+        return torch.stack([ar1_cov_diff(variances[l], lengthscales[l],
+                                         rhos[l], X[l], fid[l], kernel)
+                            for l in range(X.shape[0])])
     return _k.ar1_cov(X, fid, X, fid, variances, lengthscales, rhos, kernel)
 
 

@@ -1,7 +1,14 @@
 // B1: fused AR1 covariance
 //
-//   K[i, j] = sum_m wA[m, i] wB[m, j] base(|A[m, i] - B[m, j]|^2)
+//   K[i, j] = sum_m wA[m, i] wB[m, j] base(|(A[m, i] - B[m, j]) o il[m]|^2)
 //             (+ noise[i] where i == j, when a noise vector is given)
+//
+// with A, B the points (unscaled) and il[m] fidelity m's inverse
+// lengthscales. The difference is taken before the scaling: two close
+// points subtract exactly in float32, where points scaled first lose the
+// digits their difference needs once |x| / lengthscale is large (the
+// Pallas kernel scales first: at lengthscale 0.002 and coordinates ~15,
+// 2.6e-4 relative against 6e-8 this way, a refit's trial hyperparameters).
 //
 // stored with row stride ldo; when a second output lo is given, out and lo
 // get the TF32 split of K instead (out = tf32_round(K), lo =
@@ -12,8 +19,8 @@
 // mfgp_tpu/ops/pallas_kernels.py (pallas_call at :155), and with F = 1 its
 // wrapper rbf_cov_fused.
 //
-// What bounds it on the H100: with D = 3 the distance is three subtractions
-// and three FMAs per fidelity, so there is no product for the tensor cores
+// What bounds it on the H100: with D = 3 the distance is three subtractions,
+// three products and three FMAs per fidelity, so there is no product for the tensor cores
 // to take. Each output costs F exponentials (plus F square roots for
 // matern32) and one 4-byte store (two for the split). At the unit's
 // 20,000 x 20,000 Gram (F = 3) that is 1.6 GB written, 0.48 ms at 3.35 TB/s,
@@ -84,6 +91,7 @@ struct Args {
   const float* wA;
   const float* B;
   const float* wB;
+  const float* ils;  // (F, D) inverse lengthscales
   const float* noise;
   float* out;
   float* lo;
@@ -91,8 +99,9 @@ struct Args {
   int N, M, F, D;
   int sym;  // B is A: compute the tiles on and below the diagonal only
   int vec;  // 16-byte stores allowed (row stride and bases aligned)
-  // per-lane strides, in floats, of A, wA, B, wB, noise and out (and lo)
-  long long sA, swA, sB, swB, sNoise, sOut;
+  // per-lane strides, in floats, of A, wA, B, wB, ils, noise and out (and
+  // lo)
+  long long sA, swA, sB, swB, sIls, sNoise, sOut;
 };
 
 // 2^x and 1/sqrt(x) on the special-function unit, one instruction each
@@ -225,6 +234,7 @@ ar1_cov_kernel(Args a) {
     a.wA += z * a.swA;
     a.B += z * a.sB;
     a.wB += z * a.swB;
+    a.ils += z * a.sIls;
     if (a.noise != nullptr) a.noise += z * a.sNoise;
     a.out += z * a.sOut;
     if (a.lo != nullptr) a.lo += z * a.sOut;
@@ -255,6 +265,10 @@ ar1_cov_kernel(Args a) {
     stage<DS>(sB, swB, a.B, a.wB, a.M, col0, f0, nf, a.D, tid);
     __syncthreads();
     for (int f = 0; f < nf; ++f) {
+      float il[DS];
+#pragma unroll
+      for (int d = 0; d < DS; ++d)
+        il[d] = d < a.D ? __ldg(&a.ils[(f0 + f) * a.D + d]) : 0.0f;
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
         float ax[4][DS], wa[4];
@@ -270,7 +284,7 @@ ar1_cov_kernel(Args a) {
               float r2 = 0.0f;
 #pragma unroll
               for (int d = 0; d < DS; ++d) {
-                const float t = ax[rk][d] - bx[ck][d];
+                const float t = (ax[rk][d] - bx[ck][d]) * il[d];
                 r2 = fmaf(t, t, r2);
               }
               float& c = acc[4 * rh + rk][4 * ch + ck];
@@ -360,15 +374,16 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // L lanes: A (L, F, N, D) and wA (L, F, N) at lane strides sA and swA (B,
-// wB likewise), noise (L, N) at sNoise, out and lo (L, N, ldo) at sOut;
-// lane l's block of each is one covariance. A single covariance is L = 1
-// with zero strides.
+// wB likewise), ils (L, F, D) at sIls, noise (L, N) at sNoise, out and lo
+// (L, N, ldo) at sOut; lane l's block of each is one covariance. A single
+// covariance is L = 1 with zero strides.
 extern "C" int mfgp_ar1_cov_f32(const float* A, const float* wA,
                                 const float* B, const float* wB,
-                                const float* noise, float* out, float* lo,
-                                long long ldo, int L, int N, int M, int F,
-                                int D, int kern, int sym, long long sA,
-                                long long swA, long long sB, long long swB,
+                                const float* ils, const float* noise,
+                                float* out, float* lo, long long ldo, int L,
+                                int N, int M, int F, int D, int kern,
+                                int sym, long long sA, long long swA,
+                                long long sB, long long swB, long long sIls,
                                 long long sNoise, long long sOut,
                                 void* stream) {
   if (N <= 0 || M <= 0 || L <= 0) return 0;
@@ -379,10 +394,10 @@ extern "C" int mfgp_ar1_cov_f32(const float* A, const float* wA,
     return bad;
   const long long tn = (N + kBM - 1) / kBM, tm = (M + kBM - 1) / kBM;
   if (sym ? tn * (tn + 1) / 2 > 0x7FFFFFFF : tn > 65535) return bad;
-  const Args a{A, wA, B, wB, noise, out, lo, ldo, N, M, F, D, sym,
+  const Args a{A, wA, B, wB, ils, noise, out, lo, ldo, N, M, F, D, sym,
                ldo % 4 == 0 && sOut % 4 == 0 && aligned16(out) &&
                    (lo == nullptr || aligned16(lo)),
-               sA, swA, sB, swB, sNoise, sOut};
+               sA, swA, sB, swB, sIls, sNoise, sOut};
   const dim3 grid = sym ? dim3((unsigned)(tn * (tn + 1) / 2), 1, L)
                         : dim3((unsigned)tm, (unsigned)tn, L);
   const auto s = static_cast<cudaStream_t>(stream);

@@ -238,21 +238,41 @@ def _launch(entry: str, device: torch.device, *args) -> None:
                            f"({lib.mfgp_error_string(rc).decode()})")
 
 
+def _weights(fid, variances, rhos, device):
+    """The folded weights (F, N) ``w = W[:, fid] sqrt(var)`` of the Pallas
+    kernels' ``_prep``, in float32 (lane axis: (L, F, N))."""
+    f32 = dict(dtype=torch.float32, device=device)
+    variances = torch.as_tensor(variances, **f32)
+    W = _k.ar1_fidelity_weights(torch.as_tensor(rhos, **f32),
+                                variances.shape[-1])
+    idx = fid[..., None, :].expand(*W.shape[:-1], fid.shape[-1])
+    return (torch.gather(W, -1, idx)
+            * torch.sqrt(variances)[..., None]).contiguous()
+
+
 def _prep(X, fid, variances, lengthscales, rhos):
     """Scaled inputs (F, N, D) and folded weights (F, N): the Pallas
-    kernels' ``_prep`` (``w = W[:, fid] sqrt(var)``), in float32. With a
-    leading lane axis on every argument (X (L, N, D), fid (L, N), variances
-    (L, F), lengthscales (L, F, D), rhos (L, F-1)) it preps all lanes at
-    once: (L, F, N, D) and (L, F, N)."""
-    f32 = dict(dtype=torch.float32, device=X.device)
-    variances = torch.as_tensor(variances, **f32)
-    lengthscales = torch.as_tensor(lengthscales, **f32)
-    rhos = torch.as_tensor(rhos, **f32)
+    kernels' ``_prep``, in float32 (B2's inputs). With a leading lane axis
+    on every argument (X (L, N, D), fid (L, N), variances (L, F),
+    lengthscales (L, F, D), rhos (L, F-1)) it preps all lanes at once:
+    (L, F, N, D) and (L, F, N)."""
+    lengthscales = torch.as_tensor(lengthscales, dtype=torch.float32,
+                                   device=X.device)
     A = X[..., None, :, :] * (1.0 / lengthscales)[..., :, None, :]
-    W = _k.ar1_fidelity_weights(rhos, variances.shape[-1])
-    idx = fid[..., None, :].expand(*W.shape[:-1], fid.shape[-1])
-    w = torch.gather(W, -1, idx) * torch.sqrt(variances)[..., None]
-    return A.contiguous(), w.contiguous()
+    return A.contiguous(), _weights(fid, variances, rhos, X.device)
+
+
+def _prep_b1(X, fid, variances, lengthscales, rhos):
+    """B1's inputs: the points unscaled, one copy per fidelity (F, N, D),
+    the folded weights (F, N), and the inverse lengthscales (F, D); B1
+    scales each difference itself (see csrc/ar1_cov.cu). With a leading
+    lane axis on every argument, (L, F, N, D), (L, F, N) and (L, F, D)."""
+    lengthscales = torch.as_tensor(lengthscales, dtype=torch.float32,
+                                   device=X.device)
+    A = torch.broadcast_to(X.to(torch.float32)[..., None, :, :],
+                           lengthscales.shape[:-1] + X.shape[-2:])
+    return (A.contiguous(), _weights(fid, variances, rhos, X.device),
+            (1.0 / lengthscales).contiguous())
 
 
 def _ar1_check(name, X1, X2, noise_diag, kern):
@@ -285,9 +305,10 @@ def same_points(X1, fid1, X2, fid2) -> bool:
     return same(X1, X2) and same(fid1, fid2)
 
 
-def _launch_ar1_cov(A, wA, B, wB, noise, out, kern_id: int,
+def _launch_ar1_cov(A, wA, B, wB, ils, noise, out, kern_id: int,
                     lo=None) -> None:
-    """B1 on prepped inputs (A (F, N, D), wA (F, N), B, wB likewise), into
+    """B1 on prepped inputs (A (F, N, D), wA (F, N), B, wB likewise, ils
+    (F, D): ``_prep_b1``), into
     ``out`` (any row stride) or, with ``lo``, into the TF32 planes (out,
     lo) of the result; ``B is A`` (with ``wB is wA``) takes the symmetric
     Gram's half grid. With a leading lane axis on every argument (A
@@ -303,19 +324,21 @@ def _launch_ar1_cov(A, wA, B, wB, noise, out, kern_id: int,
         return t.stride(0) if lanes and t is not None else 0
 
     _launch("mfgp_ar1_cov_f32", A.device, _ptr(A), _ptr(wA), _ptr(B),
-            _ptr(wB), _ptr(noise), _ptr(out), _ptr(lo), out.stride(-2),
-            A.shape[0] if lanes else 1, N, M, F, D, kern_id, int(sym),
-            *(lane_stride(t) for t in (A, wA, B, wB, noise, out)))
+            _ptr(wB), _ptr(ils), _ptr(noise), _ptr(out), _ptr(lo),
+            out.stride(-2), A.shape[0] if lanes else 1, N, M, F, D, kern_id,
+            int(sym),
+            *(lane_stride(t) for t in (A, wA, B, wB, ils, noise, out)))
     LAUNCHES["ar1_cov_fused"] += 1
 
 
 def _prep_pair(X1, fid1, X2, fid2, variances, lengthscales, rhos):
-    """(A, wA, B, wB) of a B1 launch; prepped once, ``B is A``, when the
-    two point sets are the same (``same_points``)."""
-    A, wA = _prep(X1, fid1, variances, lengthscales, rhos)
+    """(A, wA, B, wB, ils) of a B1 launch; prepped once, ``B is A``, when
+    the two point sets are the same (``same_points``)."""
+    A, wA, ils = _prep_b1(X1, fid1, variances, lengthscales, rhos)
     if same_points(X1, fid1, X2, fid2):
-        return A, wA, A, wA
-    return (A, wA) + _prep(X2, fid2, variances, lengthscales, rhos)
+        return A, wA, A, wA, ils
+    B, wB, _ = _prep_b1(X2, fid2, variances, lengthscales, rhos)
+    return A, wA, B, wB, ils
 
 
 def _planes(rows: int, cols: int, device):
@@ -372,12 +395,12 @@ def ar1_cov_fused_lanes(X1, fid1, X2, fid2, variances, lengthscales, rhos,
         raise ValueError(f"ar1_cov_fused_lanes: noise_diag needs square Grams "
                          f"and shape ({L}, {N}), got "
                          f"{tuple(noise_diag.shape)}")
-    A, wA, B, wB = _prep_pair(X1, fid1, X2, fid2, variances, lengthscales,
-                              rhos)
+    A, wA, B, wB, ils = _prep_pair(X1, fid1, X2, fid2, variances,
+                                   lengthscales, rhos)
     device = _require_f32("ar1_cov_fused_lanes", A=A, wA=wA, B=B, wB=wB,
                           noise_diag=noise_diag)
     out = torch.empty((L, N, M), dtype=torch.float32, device=device)
-    _launch_ar1_cov(A, wA, B, wB, noise_diag, out, kid)
+    _launch_ar1_cov(A, wA, B, wB, ils, noise_diag, out, kid)
     return out
 
 

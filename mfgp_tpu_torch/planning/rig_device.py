@@ -57,6 +57,7 @@ ensemble sharded over devices, ROADMAP A6).
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -338,10 +339,28 @@ class DeviceRIG:
 
     # -- one plan's constants ------------------------------------------------
     def _context(self, B, eid, gp) -> dict:
-        """The tensors every iteration of one plan reads and none writes."""
+        """The tensors every iteration of one plan reads and none writes.
+
+        ``eid`` (G,) and the ``gp`` tuple are shared by all lanes, or carry
+        a leading lane axis (eid (L, G), X_pad (L, N, D), ...): each lane
+        then plans on its own EID and model (the members of a mission
+        ensemble). Per-lane model tensors keep that axis in the context
+        (``ctx["per_lane"]``); shared ones have none."""
         dt = self.dtype
-        ctx = {"B": B}
-        if self.cost == "ergodic":
+        ctx = {"B": B, "L": B.shape[0]}
+        if eid.dim() == 2:  # one EID per lane
+            if self.cost == "ergodic":
+                pos = torch.where(eid > 0, eid, torch.inf)
+                floor = torch.clamp_max(torch.amin(pos, -1, keepdim=True),
+                                        1e-15)
+                p_eid = torch.where(torch.any(eid == 0, -1, keepdim=True),
+                                    eid + floor, eid)
+                ctx["p_eid"] = (p_eid / torch.sum(p_eid, -1, keepdim=True)
+                                )[:, None]
+            elif self.cost == "fourier":
+                ctx["f_target"] = ((eid @ self._f_grid_basis.T)
+                                   / self._f_hk)[:, None]
+        elif self.cost == "ergodic":
             pos = torch.where(eid > 0, eid, torch.inf)
             floor = torch.clamp_max(torch.min(pos), 1e-15)
             p_eid = torch.where(torch.any(eid == 0), eid + floor, eid)
@@ -350,6 +369,9 @@ class DeviceRIG:
             ctx["f_target"] = (self._f_grid_basis @ eid) / self._f_hk
         if self.cost in STAT_COSTS:
             return ctx
+        if gp[0].dim() == 3:
+            return self._context_lanes(ctx, gp)
+        ctx["per_lane"] = False
         mf = self.cost in ("mf_gain", "mf_logdet")
         if mf:
             (X_pad, fid_pad, L_pad, variances, lengthscales, rhos, noises,
@@ -391,6 +413,81 @@ class DeviceRIG:
                            _la.chol(Sig0 + g_noise * eyeG)))
         return ctx
 
+    def _context_lanes(self, ctx, gp) -> dict:
+        """``_context``'s model tensors for a ``gp`` with a lane axis: each
+        lane's built as a solo plan builds it, stacked."""
+        L = ctx["L"]
+        mf = self.cost in ("mf_gain", "mf_logdet")
+        if mf:
+            (X_pad, fid_pad, L_pad, variances, lengthscales, rhos, noises,
+             fl) = gp
+            F = variances.shape[-1]
+            ctx.update(fid_pad=fid_pad, variances=variances,
+                       lengthscales=lengthscales, rhos=rhos, noises=noises,
+                       fl=fl, F=F, Wf=torch.stack([
+                           _k.ar1_fidelity_weights(rhos[l], F)
+                           for l in range(L)]))
+        else:
+            X_pad, L_pad, variance, lengthscales, noise = gp
+            ctx.update(fid_pad=torch.zeros(X_pad.shape[:2], dtype=torch.long,
+                                           device=X_pad.device),
+                       variances=variance.reshape(L, 1),
+                       lengthscales=lengthscales.reshape(L, 1, -1),
+                       rhos=variance.new_zeros(L, 0), noise=noise, F=1)
+        solo = [self._context(ctx["B"][l:l + 1], torch.ones(1),
+                              tuple(t[l] for t in gp)) for l in range(L)]
+        ctx["per_lane"] = True
+        cd = self.cov_dtype
+        ctx.update(X_pad=X_pad, Kinv=torch.stack([c["Kinv"] for c in solo]),
+                   X_pad_c=X_pad.to(cd),
+                   grid_c=self.grid.to(cd),
+                   hyp_c=tuple(ctx[k].to(cd) for k in ("variances",
+                                                        "lengthscales",
+                                                        "rhos")))
+        if self.cost in LOGDET_COSTS:
+            ctx.update({k: (solo[0][k] if k in ("fid_g", "eyeG")
+                            else torch.stack([c[k] for c in solo]))
+                        for k in ("fid_g", "g_noise", "Kxg", "Ag", "Sig0",
+                                  "eyeG", "ld_prior")})
+        return ctx
+
+    @staticmethod
+    def _rep(ctx, t, k: int):
+        """A per-plan model tensor for n = L * k lanes, lane-major: shared
+        (no lane axis), broadcast; per lane (L, ...), each repeated k
+        times."""
+        if ctx["per_lane"]:
+            return t.repeat_interleave(k, 0)
+        return t.expand((ctx["L"] * k,) + t.shape)
+
+    @staticmethod
+    def _lane(ctx, t, dims: int):
+        """A per-plan scalar against (L, ...) tensors of ``dims`` more
+        axes: shared as it is, per lane (L,) shaped (L, 1, ..., 1)."""
+        return t.reshape((-1,) + (1,) * dims) if ctx["per_lane"] else t
+
+    @staticmethod
+    def _left(A, X, k: int):
+        """``A @ X`` for the n = L * k lanes of X (n, a, b): A (c, a) shared
+        by all, or (L, c, a), one per lane (one product per lane, its k
+        right-hand sides side by side)."""
+        if A.dim() == 2:
+            return A @ X
+        L = A.shape[0]
+        n, a, b = X.shape
+        Xr = X.reshape(L, k, a, b).permute(0, 2, 1, 3).reshape(L, a, k * b)
+        return (A @ Xr).reshape(L, A.shape[1], k, b).permute(
+            0, 2, 1, 3).reshape(n, A.shape[1], b)
+
+    @staticmethod
+    def _right(X, A):
+        """``X @ A`` for X (L, ..., a): A (a, c) shared, or (L, a, c)."""
+        if A.dim() == 2:
+            return X @ A
+        L = A.shape[0]
+        return (X.reshape(L, -1, X.shape[-1]) @ A).reshape(
+            X.shape[:-1] + (A.shape[-1],))
+
     def _cov1(self, ctx, X1, f1, X2, f2):
         """One covariance (the grid blocks) through the model's dispatch,
         in the tiles' precision."""
@@ -404,16 +501,18 @@ class DeviceRIG:
         precision, which keeps it a view): one launch of B1's lane axis on
         the card in float32, the lanes' plain compositions elsewhere."""
         n, cd = X1.shape[0], self.cov_dtype
-        v, ls, rho = ctx["hyp_c"]
+        v, ls, rho = (self._rep(ctx, t, n // ctx["L"]) for t in ctx["hyp_c"])
         return _cov.ar1_cov_lanes(
-            v.expand(n, -1), ls.expand(n, -1, -1), rho.expand(n, -1),
-            X1.to(cd), f1, X2.to(cd), f2, self.kernel,
+            v, ls, rho, X1.to(cd), f1, X2.to(cd), f2, self.kernel,
             None if noise_diag is None else noise_diag.to(cd)).to(self.dtype)
 
     def _flabels(self, ctx, var):
         """Accrued variance -> conditioning fidelity (traced
         fids_from_variance, reference/GraceRIGV3.py:528-533)."""
-        lev = torch.sum(var[..., None] >= ctx["fl"], dim=-1)
+        fl = ctx["fl"]
+        if ctx["per_lane"]:
+            fl = fl.reshape((fl.shape[0],) + (1,) * (var.dim() - 1) + (-1,))
+        lev = torch.sum(var[..., None] >= fl, dim=-1)
         return ctx["F"] - 1 - lev
 
     # -- the loop state ------------------------------------------------------
@@ -469,9 +568,10 @@ class DeviceRIG:
                 c_gain=torch.zeros((L, MAXN, MAXP), **f),
                 c_L=torch.eye(P, **f).expand(L, MAXN, MAXP, P, P).clone())
             if self.cost in LOGDET_COSTS:
-                G = ctx["Sig0"].shape[0]
-                st["c_sig"] = ctx["Sig0"].expand(L, MAXN, MAXP, G,
-                                                 G).clone()
+                G = ctx["Sig0"].shape[-1]
+                sig0 = (ctx["Sig0"][:, None, None] if ctx["per_lane"]
+                        else ctx["Sig0"])
+                st["c_sig"] = sig0.expand(L, MAXN, MAXP, G, G).clone()
         return st
 
     # -- index lowering: gathers and scatters with a validity mask -----------
@@ -616,21 +716,24 @@ class DeviceRIG:
                                     device=dev)
             Kinv = ctx["Kinv"]
             X_pad, fid_pad = ctx["X_pad"], ctx["fid_pad"]
-            N = X_pad.shape[0]
+            N = X_pad.shape[-2]
 
             # per-edge posterior projections against the train set, the
             # (lane, edge) pairs as B1's lanes
             LE = L * E
             exyz = e_xyz.reshape(LE, S, 3)
             efid = e_fid.reshape(LE, S)
-            Xl = ctx["X_pad_c"].expand(LE, -1, -1)
-            fl_ = fid_pad.expand(LE, -1)
+            Xl = self._rep(ctx, ctx["X_pad_c"], E)
+            fl_ = self._rep(ctx, fid_pad, E)
             if mf:
-                noise_c = ctx["noises"][efid]
+                noise_c = torch.gather(self._rep(ctx, ctx["noises"], E), 1,
+                                       efid)
             else:
-                noise_c = ctx["noise"].expand(LE, S).contiguous()
+                noise_c = self._lane(ctx, ctx["noise"], 1)
+                noise_c = (self._rep(ctx, noise_c, E) if ctx["per_lane"]
+                           else noise_c).expand(LE, S).contiguous()
             Kx_c = self._cov(ctx, Xl, fl_, exyz, efid)  # (LE, N, S)
-            A_c = Kinv @ Kx_c
+            A_c = self._left(Kinv, Kx_c, E)
             D_cc = (self._cov(ctx, exyz, efid, exyz, efid, noise_c)
                     - Kx_c.mT @ A_c)
             if ld_mode:
@@ -638,14 +741,17 @@ class DeviceRIG:
                 # latent grid<->edge posterior cross-cov | train
                 Cgs = (self._cov(ctx, ctx["grid_c"].expand(LE, -1, -1),
                                  ctx["fid_g"].expand(LE, -1), exyz, efid)
-                       - ctx["Ag"].T @ Kx_c)  # (LE, G, S)
+                       - self._left(ctx["Ag"].mT, Kx_c, E))  # (LE, G, S)
                 eKx_p, eSig_cp = Kx_c, Cgs
             elif mf:
                 f0 = zS.reshape(LE, S)
                 Kx_p = self._cov(ctx, Xl, fl_, exyz, f0)
-                A_p = Kinv @ Kx_p
+                A_p = self._left(Kinv, Kx_p, E)
                 eSig_cp = self._cov(ctx, exyz, efid, exyz, f0) - Kx_c.mT @ A_p
-                kpp = torch.sum(ctx["Wf"][:, 0] ** 2 * ctx["variances"])
+                kpp = torch.sum(ctx["Wf"][..., 0] ** 2 * ctx["variances"],
+                                dim=-1)
+                if ctx["per_lane"]:
+                    kpp = kpp.repeat_interleave(E)[:, None]
                 esig_pp = kpp - torch.sum(Kx_p * A_p, dim=1)  # (LE, S)
                 eKx_p = Kx_p
             else:
@@ -660,10 +766,11 @@ class DeviceRIG:
             pxyz = ppts[..., :3].reshape(LM, P, 3)
             pf = p_fid.reshape(LM, P)
             Kpx = self._cov(ctx, pxyz, pf,
-                            ctx["X_pad_c"].expand(LM, -1, -1),
-                            fid_pad.expand(LM, -1)).reshape(L, MAXP, P, N)
+                            self._rep(ctx, ctx["X_pad_c"], MAXP),
+                            self._rep(ctx, fid_pad, MAXP)).reshape(
+                                L, MAXP, P, N)
             Kpx = torch.where(m[..., None], Kpx, 0.0)
-            Rp = Kpx @ Kinv  # (L, MAXP, P, N)
+            Rp = self._right(Kpx, Kinv)  # (L, MAXP, P, N)
             if ld_mode:
                 # whitened prefix<->grid posterior cross-cov | train
                 Kpg = self._cov(ctx, pxyz, pf,
@@ -672,7 +779,8 @@ class DeviceRIG:
                                     L, MAXP, P, G)
                 Kpg = torch.where(m[..., None], Kpg, 0.0)
                 Vg = torch.linalg.solve_triangular(
-                    Lp, Kpg - Rp @ ctx["Kxg"], upper=False)  # (L,MAXP,P,G)
+                    Lp, Kpg - self._right(Rp, ctx["Kxg"]),
+                    upper=False)  # (L,MAXP,P,G)
                 csig_src = self._at(st["c_sig"], src_idx)  # (L,MAXP,G,G)
 
             # every (path, edge) pair: exact score of extending path ip by
@@ -720,18 +828,21 @@ class DeviceRIG:
                 W = torch.linalg.solve_triangular(Ls, Cgs_p.mT,
                                                   upper=False)  # (.., S, G)
                 Sig_new = csig_src[:, :, None] - W.mT @ W
-                inc = 0.5 * (ctx["ld_prior"] - _la.logdet_from_chol(
-                    _la.chol(Sig_new + ctx["g_noise"] * ctx["eyeG"])))
+                inc = 0.5 * (self._lane(ctx, ctx["ld_prior"], 2)
+                             - _la.logdet_from_chol(_la.chol(
+                                 Sig_new + self._lane(ctx, ctx["g_noise"], 4)
+                                 * ctx["eyeG"])))
                 if not mf:  # the reference's SF variant clamps
                     inc = torch.clamp_min(inc, 0.0)
                 gains = inc.reshape(L, -1)  # direct scores, not increments
             else:
                 if not mf:
-                    noise = ctx["noise"]
+                    noise = self._lane(ctx, ctx["noise"], 3)
                     v = torch.diagonal(Ls, dim1=-2, dim2=-1) ** 2
                     terms = torch.log(1.0 + v / noise)
                     # first-point self-conditioning quirk at path start
                     # (reference/GraceRIGV3.py:454-456)
+                    noise = self._lane(ctx, ctx["noise"], 2)
                     a = eD_cc[..., 0, 0][:, None] - noise  # (L, 1, E)
                     t0 = torch.log(1.0 + (a - a * a / (a + noise) + noise)
                                    / noise)
@@ -739,7 +850,7 @@ class DeviceRIG:
                                                 terms[..., 0])
                     inc = torch.sum(terms, dim=-1)
                 else:
-                    noise0 = ctx["noises"][0]
+                    noise0 = self._lane(ctx, ctx["noises"][..., 0], 3)
                     f0p = torch.zeros((LME, S), dtype=torch.long, device=dev)
                     Kpn_cp = self._cov(ctx, pxyz_p, pair_lanes(p_fid),
                                        exyz_p, f0p)
@@ -812,7 +923,9 @@ class DeviceRIG:
             if ld_mode:
                 W_s = self._take(W.reshape(L, MAXP * E, S, G), top)
                 new_sig = self._take(csig_src, ip_s) - W_s.mT @ W_s
-                new_sig = torch.where(sel4, new_sig, ctx["Sig0"])
+                sig0 = (ctx["Sig0"][:, None] if ctx["per_lane"]
+                        else ctx["Sig0"])
+                new_sig = torch.where(sel4, new_sig, sig0)
 
         prev = torch.gather(src_slots, 1, top // E)
         edge_ids = ebase + top % E
@@ -874,7 +987,7 @@ class DeviceRIG:
                              0.0)
             if ld_mode:
                 cS = torch.where(bvalid, keep_rows(st["c_sig"], new_sig),
-                                 ctx["Sig0"])
+                                 sig0)
                 self._put(st["c_sig"], dst_idx, cS, active)
             self._put(st["c_L"], dst_idx, cL, active)
             self._put(st["c_pts"], dst_idx, cP, active)
@@ -941,7 +1054,14 @@ class DeviceRIG:
     # -- the loop ------------------------------------------------------------
     def _run(self, x0, B, eid, gp, draws) -> dict:
         """The whole loop over L lanes: x0 (L, 2), B (L,), draws (L,
-        max_iter, draw_width). Returns the final state."""
+        max_iter, draw_width). Returns the final state.
+
+        With ``graph``, the first call of a shape runs iteration 0 eagerly
+        and captures one iteration; a later call whose plan constants,
+        state and draws have the same shapes (a mission's replans) copies
+        its values into the captured buffers and replays every iteration,
+        so it captures nothing. Its state is then those buffers, which the
+        next call overwrites."""
         from mfgp_tpu_torch.ops import cuda_kernels as _ck
 
         with torch.no_grad():
@@ -949,6 +1069,17 @@ class DeviceRIG:
             st = self._init_state(x0, ctx)
             it = torch.zeros((), dtype=torch.long, device=self.device)
             n0 = _ck.LAUNCHES["ar1_cov_fused"]
+            key = _shapes((ctx, st, draws))
+            g = self._graph
+            if self.graph and g is not None and g["key"] == key:
+                _copy_into(g["args"], (ctx, st, draws))
+                g["it"].zero_()
+                for _ in range(self.max_iter):
+                    g["graph"].replay()
+                self.stats = dict(eager_iterations=0, replays=self.max_iter,
+                                  b1_captured=g["b1"], capture_s=0.0,
+                                  b1_launches=g["b1"] * self.max_iter)
+                return g["args"][1]
             if not self.graph or self.max_iter < 2:
                 for _ in range(self.max_iter):
                     self.body(st, ctx, draws, it)
@@ -956,6 +1087,9 @@ class DeviceRIG:
                                   b1_launches=_ck.LAUNCHES["ar1_cov_fused"]
                                   - n0, b1_captured=0)
                 return st
+            # the captured graph reads buffers of its own: the constants'
+            # tensors may be the caller's
+            ctx, draws = _clone_tree((ctx, draws))
             # iteration 0 eagerly on a side stream (it also warms up the
             # libraries' handles), then one iteration captured and replayed
             side = torch.cuda.Stream(self.device)
@@ -964,17 +1098,21 @@ class DeviceRIG:
                 self.body(st, ctx, draws, it)
             torch.cuda.current_stream(self.device).wait_stream(side)
             n1 = _ck.LAUNCHES["ar1_cov_fused"]
+            t_cap = time.perf_counter()
             g = torch.cuda.CUDAGraph()
             with torch.cuda.graph(g):
                 self.body(st, ctx, draws, it)
+            capture_s = time.perf_counter() - t_cap
             captured = _ck.LAUNCHES["ar1_cov_fused"] - n1
             for _ in range(self.max_iter - 1):
                 g.replay()
             self.stats = dict(eager_iterations=1, replays=self.max_iter - 1,
-                              b1_captured=captured,
+                              b1_captured=captured, capture_s=capture_s,
                               b1_launches=(n1 - n0) + captured
                               * (self.max_iter - 1))
-            self._graph = g  # its memory pool outlives the replays
+            # its memory pool outlives the replays
+            self._graph = dict(key=key, graph=g, args=(ctx, st, draws),
+                               it=it, b1=captured)
             return st
 
     def _args(self, x0s, Bs, eid, gp):
@@ -1126,6 +1264,44 @@ class DeviceRIG:
             float(s["a_time"][best]), points, n_nodes, nodes, edges,
             truncated=False, n_feasible_edges=n_feas, trace=trace,
             chain=[0] + arena)
+
+
+def _leaves(tree):
+    """The tensors of nested dicts / tuples / lists, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _shapes(tree) -> tuple:
+    """What a captured iteration depends on besides tensor values: every
+    leaf's shape and dtype, and the other values of the dicts."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, dict):
+        return tuple((k, _shapes(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (tuple, list)):
+        return tuple(_shapes(v) for v in tree)
+    return tree
+
+
+def _clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree
+
+
+def _copy_into(dst, src) -> None:
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        d.copy_(s)
 
 
 def _pad_state(X, L, n_max: int):

@@ -943,3 +943,161 @@ def test_device_planner_ensemble_equals_solo(dev, cost):
     best = rig.plan_ensemble([1.0, 1.0], n_plans=2, draws=draws, **kw)
     win = max(solos, key=lambda r: (r.info, -r.budget))
     assert best.chain == win.chain
+
+
+# ---------------------------------------------------------------------------
+# the device runtime and the mission
+# ---------------------------------------------------------------------------
+def _runtime(dev, graph, stride=1):
+    """A runtime on the card (float64) and two plans of two legs each."""
+    from mfgp_tpu_torch.hw.runtime import RuntimeConfig
+    from mfgp_tpu_torch.hw.runtime_device import DevicePlan, DeviceRuntime
+    from mfgp_tpu_torch.planning.primitives import (AgentConfig, Leg,
+                                                    evaluate_trajectory,
+                                                    generate_trajectory)
+
+    cfg = AgentConfig.sim_defaults()
+    rt = DeviceRuntime(cfg, RuntimeConfig(dt=0.1), device=dev,
+                       graph=graph, glide_stride=stride)
+    plans, carries = [], []
+    for seed, dist in ((0, 2.0), (4, 1.5)):
+        _, prims = generate_trajectory(np.random.default_rng(seed),
+                                       [Leg.GLIDE, Leg.SWIM], dist, cfg)
+        _, _, _, w, _ = evaluate_trajectory(prims, cfg)
+        way = np.column_stack([w[:, 0], np.zeros(len(w)), w[:, 1],
+                               w[:, 2]])
+        plans.append(rt.pack_plan(way, prims))
+        carries.append(rt.init_carry(way[0, 0], way[0, 1]))
+    plan = DevicePlan(*[torch.cat([getattr(p, k) for p in plans])
+                        for k in DevicePlan._fields])
+    carry = {k: torch.cat([c[k] for c in carries]) for k in carries[0]}
+    return rt, plan, carry
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+def test_runtime_captured_chunk_equals_eager(dev, stride):
+    """Two lanes flown by chunks of ticks captured as CUDA graphs and
+    replayed (with glide_stride 4: coarse, fine and mixed windows) equal
+    the eager loop bit for bit: every log row and the carry."""
+    noise = torch.randn((2, 700, 13), generator=torch.Generator()
+                        .manual_seed(3), dtype=torch.float64)
+    outs = []
+    for graph in (True, False):
+        rt, plan, carry = _runtime(dev, graph, stride)
+        outs.append(rt.fly(plan, carry, noise, 700))
+        assert (rt.last_fly["replays"] > 0) == graph
+    (ca, la), (cb, lb) = outs
+    for k in la:
+        assert torch.equal(la[k], lb[k]), k
+    for k in ca:
+        assert torch.equal(ca[k], cb[k]), k
+
+
+@pytest.mark.parametrize("kind", ["fine", "mixed"])
+def test_runtime_window_has_no_host_sync(dev, kind):
+    """A window of ticks (the unit a graph captures) runs under
+    ``set_sync_debug_mode("error")``."""
+    rt, plan, carry = _runtime(dev, False, 1 if kind == "fine" else 4)
+    noise = torch.zeros((2, 64, 13), dtype=torch.float64)
+    rt.fly(plan, carry, noise, 64)
+    b = rt._engines[(2, 64)]
+    b["i"].zero_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            rt._window(b, kind)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(b["i"]) == 3 * rt.glide_stride
+
+
+def test_mission_float32_on_the_card(dev):
+    """A small float32 mission (MF, sequential gain, refits) on the card:
+    B1 launched in every replan, a finite result."""
+    from mfgp_tpu_torch.sim.mission_device import DeviceMission
+    from mfgp_tpu_torch.utils.configs import ExperimentConfig
+
+    m = DeviceMission(ExperimentConfig(B=20.0, BD=2, multi_fidelity=True,
+                                       ergodic=False, update_hyps=True),
+                      seed=0, plan_iters=12, e_max=6, max_nodes=16,
+                      samples_per_edge=6, device=dev)
+    assert m.dtype == torch.float32
+    counts, body = [], m._body
+
+    def counted(r, st, run):
+        n0 = ck.LAUNCHES["ar1_cov_fused"]
+        out = body(r, st, run)
+        counts.append(ck.LAUNCHES["ar1_cov_fused"] - n0)
+        return out
+
+    m._body = counted
+    res = m.run()
+    assert len(counts) == 2 and all(c > 0 for c in counts)
+    assert res.n_replans >= 1 and np.isfinite(res.rmse)
+    assert np.all(np.isfinite(res.test_mu))
+
+
+@pytest.mark.parametrize("cost", ["ergodic", "mf_gain"])
+def test_device_planner_reused_graph_equals_eager(dev, cost):
+    """A second plan of the same shapes replays the first plan's captured
+    iteration on its own values (nothing captured): it equals the eager
+    loop's plan of the same draws bit for bit."""
+    g, kw = _planner(dev, cost, graph=True)
+    e, _ = _planner(dev, cost, graph=False)
+    g.plan([1.0, 1.0], seed=2, **kw)
+    a = g.plan([2.0, 3.0], seed=5, **kw)
+    assert g.stats["eager_iterations"] == 0 and g.stats["capture_s"] == 0.0
+    assert _same(a, e.plan([2.0, 3.0], seed=5, **kw)) and a.n_nodes > 1
+
+
+@pytest.mark.parametrize("ls", [0.1, 0.01, 0.002])
+def test_ar1_cov_small_lengthscales(dev, ls):
+    """B1 scales each difference itself, so close points far from the
+    origin keep their digits at small lengthscales (a refit's trial
+    hyperparameters): every lane within 1e-5 x max(1, largest entry) of
+    float64 on the same inputs (points scaled first were off by 2.6e-4
+    relative at lengthscale 0.002)."""
+    g = np.random.default_rng(5)
+    base = np.array([7.3, 14.1, 3.2])
+    X = (base + np.cumsum(g.normal(0, 0.5 * ls, (2, 300, 3)), 1)).astype(
+        np.float32)
+    fid = g.integers(0, 3, (2, 300))
+    v = np.array([[1.3, 0.8, 2.1]] * 2, np.float32)
+    lsv = np.full((2, 3, 3), ls, np.float32)
+    rho = np.array([[0.9, 1.1]] * 2, np.float32)
+    Xt, ft, vt, lt, rt = _t(dev, X, fid, v, lsv, rho)
+    got = ck.ar1_cov_fused_lanes(Xt, ft, Xt, ft, vt, lt, rt)
+    ref = ck.ar1_cov_fused_lanes_plain(*_f64(Xt, ft, Xt, ft, vt, lt, rt))
+    top = max(1.0, float(ref.abs().max()))
+    assert float((got.double() - ref).abs().max()) <= 1e-5 * top
+
+
+@pytest.mark.parametrize("kern", KERNELS)
+@pytest.mark.parametrize("ls", [0.1, 0.01, 0.002])
+def test_ar1_train_cov_backward_small_lengthscales(dev, kern, ls):
+    """The refit's differentiable Gram on the card (B1's lane axis forward,
+    closed-form backward) at small trial lengthscales, close points far
+    from the origin: each lane's cotangents within 1e-5 normwise of
+    float64 autograd through the plain composition on the same inputs."""
+    g = np.random.default_rng(5)
+    X = (np.array([7.3, 14.1, 3.2]) + np.cumsum(
+        g.normal(0, 0.5 * ls, (2, 300, 3)), 1)).astype(np.float32)
+    fid = g.integers(0, 3, (2, 300))
+    u = g.normal(size=(2, 300, 1))
+    Ct = u @ u.transpose(0, 2, 1) + 0.1 * g.normal(size=(2, 300, 300))
+    v = np.array([[1.3, 0.8, 2.1]] * 2)
+    lsv = np.full((2, 3, 3), ls)
+    rho = np.array([[0.9, 1.1]] * 2)
+    Xt, ft, vt, lt, rt, Ctt = _t(dev, X, fid, v, lsv, rho, Ct)
+    args = [a.clone().requires_grad_() for a in (vt, lt, rt)]
+    K = tcov._AR1TrainCov.apply(kern, *args, Xt, ft)
+    got = torch.autograd.grad(K, args, Ctt)
+    for l in range(2):
+        ref = [a[l].detach().cpu().double().requires_grad_()
+               for a in (vt, lt, rt)]
+        Kl = tcov._k.ar1_cov(*_f64(Xt[l].cpu(), ft[l].cpu(), Xt[l].cpu(),
+                                   ft[l].cpu()), *ref, kern)
+        ref = torch.autograd.grad(Kl, ref, Ctt[l].cpu().double())
+        for a, b in zip(got, ref):
+            assert float((a[l].cpu().double() - b).norm() / b.norm()) <= 1e-5

@@ -120,6 +120,44 @@ def test_ar1_train_cov_float32_matches_pallas_vjp(kernel):
         close(g, h, rtol=2e-4, atol=2e-4)
 
 
+def close_points(ls, lanes=(), N=300):
+    """float32 (X, fid, v, ls, rho, Ct) of close points far from the origin
+    (steps of about half a lengthscale around (7.3, 14.1, 3.2)) and a
+    cotangent with a rank-one part, as a refit's Gram sees them."""
+    g = np.random.default_rng(5)
+    X = np.array([7.3, 14.1, 3.2]) + np.cumsum(
+        g.normal(0, 0.5 * ls, lanes + (N, 3)), -2)
+    fid = g.integers(0, 3, lanes + (N,))
+    u = g.normal(size=lanes + (N, 1))
+    Ct = u @ np.swapaxes(u, -1, -2) + 0.1 * g.normal(size=lanes + (N, N))
+    par = (np.array([1.3, 0.8, 2.1]), np.full((3, 3), ls),
+           np.array([0.9, 1.1]))
+    par = [np.broadcast_to(a, lanes + a.shape) for a in par]
+    f32 = lambda a: np.asarray(a, np.float32)
+    return f32(X), fid, *map(f32, par), f32(Ct)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("ls", [0.1, 0.01, 0.002])
+def test_ar1_train_cov_backward_float32_small_lengthscales(kernel, ls):
+    """float32 closed-form backward at a refit's small trial lengthscales:
+    each cotangent within 1e-5 normwise of float64 autograd through the
+    plain composition on the same float32 inputs. (Summed from the norm
+    expansion, the lengthscales' cotangent was 84x too large at 0.002.)"""
+    X, fid, v, lsv, rho, Ct = close_points(ls)
+    ref = [torch.tensor(a, dtype=torch.float64, requires_grad=True)
+           for a in (v, lsv, rho)]
+    K = tcov._k.ar1_cov(*tt(X.astype(np.float64), fid,
+                            X.astype(np.float64), fid), *ref, kernel)
+    ref = torch.autograd.grad(K, ref, torch.as_tensor(Ct, dtype=torch.float64))
+    args = [torch.tensor(a, requires_grad=True) for a in (v, lsv, rho)]
+    K = tcov._AR1TrainCov.apply(kernel, *args, *tt(X, fid))
+    got = torch.autograd.grad(K, args, torch.as_tensor(Ct))
+    for g, h in zip(got, ref):
+        assert g.dtype == torch.float32
+        assert float((g.double() - h).norm() / h.norm()) <= 1e-5
+
+
 def test_ar1_cov_diff_dispatch(monkeypatch):
     """Plain autograd on the CPU; the Function where the kernels apply,
     with the same gradients."""

@@ -176,7 +176,7 @@ def test_same_points_decides_the_symmetric_gram(rng, case, same):
     }[case]
     assert torch.equal(X2, X) or case == "other fid"
     assert ck.same_points(X, fid, X2, fid2) is same
-    A, wA, B, wB = ck._prep_pair(X, fid, X2, fid2, var, ls, rho)
+    A, wA, B, wB, _ = ck._prep_pair(X, fid, X2, fid2, var, ls, rho)
     assert (B is A and wB is wA) is same
     torch.testing.assert_close(B, A, rtol=0, atol=0)
 

@@ -410,6 +410,8 @@ def keys(doc):
 
 COMMANDS = ["sfgp", "nigp", "mfgp", "pipeline", "trainers", "aggregate",
             "study", "infogain-test", "explore"]
+# driven in tests/test_torch_mission_paths.py
+MISSION_COMMANDS = ["mission", "mission-server", "campaign"]
 
 
 @pytest.mark.parametrize("cmd", COMMANDS)
@@ -476,9 +478,9 @@ def test_cli_commands(cmd, dataset, short_fits, tmp_path, capsys):
 def test_cli_surface(capsys):
     ap = tcli.build_parser()
     sub = next(a for a in ap._actions if a.dest == "cmd")
-    assert sorted(sub.choices) == sorted(COMMANDS)
+    assert sorted(sub.choices) == sorted(COMMANDS + MISSION_COMMANDS)
     jsub = next(a for a in jcli.build_parser()._actions if a.dest == "cmd")
-    for cmd in COMMANDS:
+    for cmd in COMMANDS + MISSION_COMMANDS:
         flags = lambda p: sorted(o for a in p._actions
                                  for o in a.option_strings or [a.dest])
         assert flags(sub.choices[cmd]) == flags(jsub.choices[cmd]), cmd
