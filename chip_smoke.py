@@ -26,10 +26,12 @@
    shapes (the unit's Gram, B3's S^T planes, the GP's F=1 Gram) with its
    bound and share of it; the unit's TF32 planes (Linv, Linv^T, B1's S^T)
    against the plain split bit for bit.
-6. Fit: the fit paths. First two checks at a small size: the autodiff
+6. Fit: the fit paths. First three checks at a small size: the autodiff
    NLML gradient in float32 on the card (through B1's autograd Function,
-   rhos included, N=2,000, both bases) against float64, and the Function's
-   backward for an asymmetric cotangent (N=1,000). Where one analytic and
+   rhos included, N=2,000, both bases) against float64, the Function's
+   backward for an asymmetric cotangent (N=1,000), and the analytic
+   gradient at ROADMAP C5's inputs (``grad_from_kinv`` and B2 within 2e-3
+   per component of float64). Where one analytic and
    one autodiff evaluation's time goes at N=20,000 (CUDA events). Then,
    with the launch counters from 0, the full-width fits (N=20,000):
    ``MFGP.optimize_restarts`` (rbf, matern32), ``MFGP.optimize`` (scipy on
@@ -159,7 +161,7 @@
    (``run_planner_tpu``): one ergodic plan of 200 iterations at B=150 on
    the 2,000-point grid from (1, 1), then 8 lanes of ``plan_batch``, min of
    3 after a warm-up each with one iteration captured as a CUDA graph and
-   replayed, and eagerly (min of 2 solo plans and one batch after one
+   replayed, and eagerly (one solo plan and one batch after one
    warm-up), the two held bit for bit; a 10-iteration plan of each under
    the profiler. (b) One plan per cost (the six) at the
    simulator's settings (``SimConfig()``, 40 iterations, its first tranche
@@ -196,9 +198,11 @@
    planner's captured launches counted once per replay), the planner's
    replays and capture seconds, one flight's filter eager against a graph,
    peak memory, and the idle share over a warm one-tranche mission
-   (``torch.profiler``); (b) MFGP with ``--update-hyps --fit-restarts 4``:
-   each refit's evaluations, rounds and NLML (finite, never above its warm
-   start; B1 in every replan); (c) SFEGP with ``--flight dynamic``, then
+   (``torch.profiler``); (b) MFGP with ``--update-hyps --fit-restarts 4``
+   (cut to ``--budget 40 --bd 2``, two replans per run, to keep the
+   script within its time): each refit's evaluations, rounds and NLML
+   (finite, never above its warm start; B1 in every replan); (c) SFEGP
+   with ``--flight dynamic``, then
    ``--glide-stride 4``: tracking RMSE and flown budget per replan, no
    ``meas_overflow``, and the first flight flown again by fresh runtimes:
    microseconds per tick eager and replayed, with ``glide_stride`` 4
@@ -214,6 +218,38 @@
    (``planner_lane_check``) with its bound. Prints ``mission_seconds``,
    its parts' seconds.
 
+15. Serve: the services of ``mfgp_tpu_torch.serve`` over HTTP (port 0,
+   stdlib clients in threads). The launches counted are those of the
+   served calls alone, each counted from just before it to just after it
+   (``ServedLaunches``; the planner's replays of captured launches
+   included); references and kernel checks run outside. (a) The
+   unit's MFGP (N=20,000, F=3, float32) saved with the port's checkpoint
+   and served by ``ModelServer.from_checkpoint``: 8 clients each POST
+   /predict with one eighth of the 10,571-point grid at once (held to
+   more than one request per launch, B1 launched, mean and variance
+   within 1e-5 of the largest |value| of one direct ``predict``), /eid
+   over the grid (sums to 1), /extend of 64 points (the grid's posterior
+   against a model conditioned from scratch in float64 on the same N+64
+   points: within 3e-3 (mean) and 2e-2 (var) of the largest |value|, and
+   within 1.5x the error of a float32 model conditioned from scratch);
+   B1 at the served shapes (a
+   predict block, /extend's cross-covariance) against float64 and timed.
+   (b) The planner phase's study-size MFGP (N of about 705, the
+   simulator's workspace) behind ``PlannerService`` (mf_gain, then
+   ergodic; 40 iterations, ``warm=True``): for mf_gain the warm plan's
+   capture happens while 4 clients hammer /predict (every answer 200 and
+   within 1e-5 of the unloaded values; the captured service plans what a
+   service built without load plans); 8 concurrent /plan requests
+   coalesce into one ``plan_batch`` launch of 8 lanes, each lane's path
+   within 1e-4 of its solo plan (solo plans capture nothing); /refit (4
+   restarts, 20 iterations), then a /plan on the cleared caches. (c)
+   ``MissionService``: the command line's default mission (MFEGP,
+   B=80, BD=4) submitted at seeds 0 and 1 (the second warm, with no
+   capture; times to result), seed 0's RMSE against a direct run and
+   phase 14's, then ``cli mission --submit URL``. Prints
+   ``serve_seconds``, its parts' seconds. ``viz`` is not imported: the
+   chip machine's matplotlib is not relied on.
+
 Every phase prints one JSON line (the fit phase one per part). A failed
 build or launch raises; a failed check is reported and the script exits 1
 after the last phase. The last line, on success only, is
@@ -221,9 +257,9 @@ after the last phase. The last line, on success only, is
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore,device_planner,mission
+    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore,device_planner,mission,serve
 
-runs the build and only the named phases of 7 to 14 (while working on
+runs the build and only the named phases of 7 to 15 (while working on
 them; ``study_batched`` runs ``study`` first, whose dataset it is held
 to); it prints no result line.
 
@@ -233,6 +269,11 @@ times only B1 at its main-path launch shapes (with its registers, static
 SASS and a checksum of its output bits) and the unit's wall for the port package of the checkout at
 ROOT, so that two commits can be timed in turns on one card. It prints
 no result line.
+
+    python3 chip_smoke.py --eval-times ROOT
+
+measures only phase 6's C5 checks and one fit evaluation's phases at
+N=20,000 (rbf and matern32) for the package at ROOT, likewise.
 """
 
 from __future__ import annotations
@@ -273,8 +314,12 @@ FP32_FLOPS = 67e12
 TF32X3_FLOPS = 495e12 / 3
 
 
+T0 = time.perf_counter()  # the script's start: every JSON line's "t_s"
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(name: str, ok: bool, detail: str) -> None:
@@ -787,6 +832,42 @@ def b1_times_only(root: str) -> int:
              times=b1_times(torch, ck, problem, kern, plain=False),
              bits=b1_bits(torch, ck, problem, kern),
              unit_wall_s=unit_walls(torch, mf, problem, kern, reps=4))
+    return 0
+
+
+def eval_times_only(root: str) -> int:
+    """``--eval-times ROOT``: phase 6's C5 checks (``c5_checks``) and
+    evaluation phases (``eval_phases``, rbf and matern32, three times each)
+    for the port package of the checkout at ROOT (another commit's, so
+    that two versions can be measured in turns on one card); it reports
+    and exits 0, it holds nothing."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from mfgp_tpu_torch.models import mfgp as mf
+    from mfgp_tpu_torch.ops import build
+    from mfgp_tpu_torch.ops import covariance as cov
+    from mfgp_tpu_torch.ops import cuda_kernels as ck
+    from mfgp_tpu_torch.ops import linalg as la
+
+    if not os.path.abspath(ck.__file__).startswith(root + os.sep):
+        print(f"chip_smoke: imported {ck.__file__}, not from {root}",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    build.load_library()
+    emit("eval_times", root=root, nvidia_smi=nvidia_smi())
+    c5_checks(torch, ck, dev)
+    problem = make_problem(torch, mf, dev)
+    for kern in BASES:
+        for _ in range(3):
+            eval_phases(torch, ck, mf, la, cov, problem, kern)
+    FAILURES.clear()
     return 0
 
 
@@ -1352,8 +1433,8 @@ def gp_unit_check(torch, ck, problem, params, grad, state, info):
          **info)
 
 
-def eval_phases(torch, ck, mf, la, cov, problem):
-    """Phase 6: where one fit evaluation's time goes at full size (rbf, the
+def eval_phases(torch, ck, mf, la, cov, problem, kern: str = "rbf"):
+    """Phase 6: where one fit evaluation's time goes at full size (the
     problem's params), on CUDA events: the analytic evaluation's steps as
     ``_nlml_vg_core(inv_mode=None)`` runs them, and the autodiff
     evaluation's forward and backward."""
@@ -1362,7 +1443,7 @@ def eval_phases(torch, ck, mf, la, cov, problem):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
     torch.cuda.synchronize()
     ev[0].record()
-    Kn = cov.mf_train_cov(v, ls, rho, nz, Xt, ft, 1e-6, "rbf")
+    Kn = cov.mf_train_cov(v, ls, rho, nz, Xt, ft, 1e-6, kern)
     ev[1].record()
     L = la.chol(Kn)
     del Kn
@@ -1373,12 +1454,12 @@ def eval_phases(torch, ck, mf, la, cov, problem):
     Kinv = la.chol_solve_blocked(L, torch.eye(Xt.shape[0], device=Xt.device))
     del L
     ev[4].record()
-    ck.grad_from_kinv(Kinv, alpha, Xt, ft, v, ls, rho, nz, "rbf")
+    ck.grad_from_kinv(Kinv, alpha, Xt, ft, v, ls, rho, nz, kern)
     ev[5].record()
     del Kinv
     q = mf.MFGPParams(*(t.detach().clone().requires_grad_(True) for t in p))
     ev[6].record()
-    val = mf.nlml(q, Xt, ft, yt, kernel="rbf", jitter=1e-6)
+    val = mf.nlml(q, Xt, ft, yt, kernel=kern, jitter=1e-6)
     ev[7].record()
     torch.autograd.grad(val, list(q))
     ev[8].record()
@@ -1388,9 +1469,66 @@ def eval_phases(torch, ck, mf, la, cov, problem):
     analytic = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
     autodiff = {"forward": ev[6].elapsed_time(ev[7]),
                 "backward": ev[7].elapsed_time(ev[8])}
-    emit("fit", part="eval_phases", base="rbf", N=int(Xt.shape[0]),
+    emit("fit", part="eval_phases", base=kern, N=int(Xt.shape[0]),
          analytic_ms=analytic, analytic_sum_ms=sum(analytic.values()),
          autodiff_ms=autodiff, autodiff_sum_ms=sum(autodiff.values()))
+
+
+# ROADMAP C5's inputs (F=3): 300 points uniform over the simulator's
+# 10 x 20 x 10 m box at lengthscales 1.0 and 0.3, and 60 points near
+# (15, 15, 15), spread 0.003, at lengthscale 0.002
+C5_CASES = (("box", 1.0), ("box", 0.3), ("close", 0.002))
+C5_BAR = 2e-3  # per component, the gradient sums' bar (PERF.md §2)
+
+
+def c5_checks(torch, ck, dev) -> dict:
+    """The float32 analytic gradient at C5's inputs: ``grad_from_kinv`` (the
+    restart fits' gradient) on K^-1 and B2 (``syrk_grad_fused``) on Linv,
+    each against ``grad_from_kinv`` in float64 on the same float32 values
+    (K^-1 = Linv^T Linv for B2), worst relative error per component of
+    (g_logvar, g_logls, g_lognoise) (tests/test_torch_cuda.py's
+    ``_c5_problem`` inputs)."""
+    out = {}
+    for kern in BASES:
+        for name, ls in C5_CASES:
+            g = np.random.default_rng(1)
+            X = (g.uniform(0, 1, (300, 3)) * [10, 20, 10] if name == "box"
+                 else 15 + g.normal(0, 0.003, (60, 3)))
+            N = X.shape[0]
+            f64 = dict(dtype=torch.float64, device=dev)
+            fid = torch.as_tensor(g.integers(0, 3, N), device=dev)
+            X, v, lsv, rho, nz = (torch.as_tensor(a, **f64) for a in (
+                X, [1.3, 0.8, 2.1], np.full((3, 3), ls), [0.9, 1.1],
+                [0.05, 0.03, 0.02]))
+            K = ck.ar1_cov_fused_plain(X, fid, X, fid, v, lsv, rho,
+                                       nz[fid] + 1e-6, kern)
+            Linv = torch.linalg.inv(torch.linalg.cholesky(K)).float()
+            Linv = Linv.contiguous()
+            L64 = Linv.double()
+            alpha = (L64.T @ L64) @ torch.as_tensor(
+                np.sin(X.cpu().numpy()).sum(1) + 0.1 * g.normal(size=N),
+                **f64)
+            r32 = [a.float() for a in (alpha, X)] + [fid] + [
+                a.float() for a in (v, lsv, rho, nz)]
+            r64 = [a.double() if a.is_floating_point() else a for a in r32]
+            ref = ck.grad_from_kinv(L64.T @ L64, *r64, kern)
+
+            def worst(got):
+                return [float(((a.double() - b).abs() / b.abs()).max())
+                        for a, b in zip(got, ref)]
+
+            key = f"{kern} {name} ls={ls}"
+            out[key] = {
+                "grad_from_kinv": worst(ck.grad_from_kinv(
+                    (L64.T @ L64).float(), *r32, kern)),
+                "syrk_grad_fused": worst(ck.syrk_grad_fused(Linv, *r32,
+                                                            kern))}
+            check(f"C5 {key}", max(max(e) for e in out[key].values())
+                  <= C5_BAR, f"worst relative error per component "
+                  f"(g_logvar, g_logls, g_lognoise) vs float64: {out[key]}"
+                  f" (<= {C5_BAR})")
+    emit("fit", part="c5", nvidia_smi=nvidia_smi(), cases=out)
+    return out
 
 
 def fit_phase(torch, ck, mf, gp, la, cov, dev, problem):
@@ -1399,6 +1537,7 @@ def fit_phase(torch, ck, mf, gp, la, cov, dev, problem):
     from bench import _theta
 
     autodiff_checks(torch, mf, cov, dev)
+    c5_checks(torch, ck, dev)
     eval_phases(torch, ck, mf, la, cov, problem)
     Xt, ft, yt, gt, _, params = problem
     v, l, _, nz = _theta()
@@ -3491,8 +3630,8 @@ def explore_phase(torch, ck, cov, dev) -> dict:
 # (1, 1); then 8 lanes of plan_batch; min of 3 after a warm-up each
 DP_ITERS, DP_LANES, DP_B, DP_REPS = 200, 8, 150.0, 3
 # the eager loop is the replayed one's comparison point and takes 7-10 s
-# a plan: after the warm-up, min of 2 solo plans and one 8-lane batch
-DP_EAGER_REPS = (2, 1)
+# a plan: after the warm-up, one solo plan and one 8-lane batch
+DP_EAGER_REPS = (1, 1)
 DP_PROFILE_ITERS = 10  # a plan this long is traced by torch.profiler
 DP_X0 = np.array([1.0, 1.0])
 # each cost: the simulator's plan_iters and first tranche, from the planner
@@ -3951,7 +4090,7 @@ def device_planner_phase(torch, ck, cov, dev) -> dict:
 MISSION_RUNS = (
     ("a_kinematic", ["mission"]),
     ("b_refit", ["mission", "--variant", "MFGP", "--update-hyps",
-                 "--fit-restarts", "4"]),
+                 "--fit-restarts", "4", "--budget", "40", "--bd", "2"]),
     ("c_dynamic", ["mission", "--variant", "SFEGP", "--flight", "dynamic"]),
     ("c_dynamic_stride4", ["mission", "--variant", "SFEGP", "--flight",
                            "dynamic", "--glide-stride", "4"]),
@@ -3972,7 +4111,7 @@ MISSION_PROFILED_ITERS = 10
 MISSION_RMSE_RATIO = 2.0  # float32 within 2x of float64 (PR 8's bar)
 MISSION_ENSEMBLE_RTOL = 1e-6  # member 0 vs the solo run, float64
 MISSION_EAGER_TICKS = 200  # eager ticks timed (the eager loop is slow)
-MISSION_STRIDE_TICKS = 2048  # ticks of the glide-stride comparison
+MISSION_STRIDE_TICKS = 1024  # ticks of the glide-stride comparison
 
 
 class MissionProbe:
@@ -4216,6 +4355,7 @@ def mission_phase(torch, ck, cov, dev) -> dict:
         mw.run()
         idle = device_idle_share(torch, mw.run)
         part("a_yardsticks")
+        MISSION_RMSE0["rmse"] = doc["rmse"]
         check("mission (a) kinematic",
               doc["replans"] >= 1 and np.isfinite(doc["rmse"])
               and doc["rmse"] <= MISSION_RMSE_RATIO * r64.rmse
@@ -4327,12 +4467,643 @@ def mission_phase(torch, ck, cov, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15. serving (serve.py): the model, planner and mission services
+# ---------------------------------------------------------------------------
+SERVE_CLIENTS = 8  # concurrent /predict and /plan clients
+SERVE_BATCH_WAIT = 0.05  # the batcher's window: the clients' posts land
+SERVE_EXTEND = 64  # points pushed through /extend
+# float32 served results against direct calls: max abs error over the
+# largest |value| (the same computation, batched differently)
+SERVE_RTOL = 1e-5
+# /extend (a bordered Cholesky block, float32 at N=20,000) against a model
+# conditioned from scratch in float64 on the same N+64 points, max abs
+# error over the largest |value|. Float32 conditioning at N=20,000 puts a
+# float32 model conditioned from scratch 9.0e-4 (mean) and 6.8e-3 (var)
+# off float64 on the H100, so the extension is held to at most 1.5x that
+# model's error, and under an absolute bar about 3x the readings.
+SERVE_EXTEND_RATIO = 1.5
+SERVE_EXTEND_F64 = {"mean": 3e-3, "var": 2e-2}
+SERVE_PLAN_ITERS = 40  # the simulator's plan_iters (sim/explore.py:89)
+SERVE_PLAN_B = 15.0  # the simulator's first tranche (sim/explore.py:343)
+SERVE_PATH_TOL = 1e-4  # coalesced lane vs solo plan (tests/test_serve.py)
+# the command line's mission defaults (MFEGP, --budget 80 --bd 4
+# --plan-iters 40 --e-max 16), as a mission server's POST body
+SERVE_MISSION = {"variant": "MFEGP", "budget": 80.0, "bd": 4,
+                 "plan_iters": 40, "e_max": 16}
+SERVE_TIMEOUT_S = 300.0  # every wait of the phase is bounded
+MISSION_RMSE0: dict = {}  # phase 14's seed-0 command-line RMSE
+
+
+class CaptureCount:
+    """Counts CUDA graph captures (``torch.cuda.CUDAGraph.capture_begin``,
+    which ``torch.cuda.graph`` calls) while installed; ``restore`` puts
+    the method back."""
+
+    def __init__(self, torch):
+        self.cls, self.n = torch.cuda.CUDAGraph, 0
+        self.orig = self.cls.capture_begin
+        count = self
+
+        def capture_begin(graph, *a, **kw):
+            count.n += 1
+            return count.orig(graph, *a, **kw)
+
+        self.cls.capture_begin = capture_begin
+
+    def restore(self):
+        self.cls.capture_begin = self.orig
+
+
+class Served:
+    """A service behind ``serve.make_http_server`` on port 0 in a daemon
+    thread; ``post``/``get`` carry timeouts, ``stop`` shuts it down."""
+
+    def __init__(self, serve, service):
+        import threading
+
+        self.srv = serve.make_http_server(service, port=0)
+        self.addr = self.srv.server_address
+        self.url = "http://%s:%d" % self.addr
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.stopped = False
+
+    def call(self, method, path, body=None):
+        import http.client
+
+        conn = http.client.HTTPConnection(*self.addr,
+                                          timeout=SERVE_TIMEOUT_S)
+        try:
+            conn.request(method, path,
+                         body=None if body is None else json.dumps(body))
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    def stop(self):
+        if not self.stopped:
+            self.stopped = True
+            self.srv.shutdown()
+            self.srv.server_close()
+            self.thread.join(timeout=SERVE_TIMEOUT_S)
+
+
+class ServedLaunches:
+    """The launches of served calls only. ``window(route)`` adds the
+    counters' increase over a block of served calls. A launch captured in
+    the planner's graph counts once in ``LAUNCHES`` and runs once per
+    replay, so the wrapped ``DeviceRIG._run`` adds the plan's
+    ``stats["b1_launches"]`` less the counter's increase during it, as
+    ``DevicePlanProbe`` does, while a window is open. References, kernel
+    checks and timings run outside every window. ``restore`` unwraps."""
+
+    def __init__(self, ck, rd):
+        self.ck, self.cls, self.orig = ck, rd.DeviceRIG, rd.DeviceRIG._run
+        self.counts = dict.fromkeys(ck.LAUNCHES, 0)
+        self.b1_by_route, self.open, self.replayed = {}, False, 0
+        count = self
+
+        def run(rig, *a, **kw):
+            n0 = ck.LAUNCHES["ar1_cov_fused"]
+            st = count.orig(rig, *a, **kw)
+            if count.open:
+                count.replayed += rig.stats["b1_launches"] - (
+                    ck.LAUNCHES["ar1_cov_fused"] - n0)
+            return st
+
+        self.cls._run = run
+
+    @contextlib.contextmanager
+    def window(self, route):
+        before, r0 = dict(self.ck.LAUNCHES), self.replayed
+        self.open = True
+        try:
+            yield
+        finally:
+            self.open = False
+            for k, n in self.ck.LAUNCHES.items():
+                self.counts[k] += n - before[k]
+            b1 = (self.ck.LAUNCHES["ar1_cov_fused"] - before["ar1_cov_fused"]
+                  + self.replayed - r0)
+            self.counts["ar1_cov_fused"] += self.replayed - r0
+            self.b1_by_route[route] = self.b1_by_route.get(route, 0) + b1
+
+    def restore(self):
+        self.cls._run = self.orig
+
+
+def concurrently(fns) -> list:
+    """Run each ``fn`` in its own thread, released together by a barrier;
+    returns [(result or exception, seconds)], each thread joined with a
+    timeout."""
+    import threading
+
+    out = [None] * len(fns)
+    barrier = threading.Barrier(len(fns))
+
+    def run(i):
+        barrier.wait(timeout=SERVE_TIMEOUT_S)
+        t0 = time.perf_counter()
+        try:
+            r = fns[i]()
+        except Exception as e:  # noqa: BLE001 (reported by the caller)
+            r = e
+        out[i] = (r, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT_S)
+    return [o if o is not None else (TimeoutError("no answer"), None)
+            for o in out]
+
+
+def rel_err(got, ref) -> float:
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - ref).max()
+                 / max(np.abs(ref).max(), 1e-300))
+
+
+def serve_model_part(torch, ck, dev, serve, problem, served) -> dict:
+    """(a): the unit's MFGP saved with the port's checkpoint and served;
+    8 concurrent /predict clients over the grid, /eid, /extend (against
+    float32 and float64 models conditioned from scratch)."""
+    from mfgp_tpu_torch.models.mfgp import MFGPParams
+    from mfgp_tpu_torch.models.mfgp import MFGP
+    from mfgp_tpu_torch.utils import checkpoint as ckpt
+
+    X, fid, y, grid, _, params = problem
+    model = MFGP(X, fid, y, n_fidelities=3, params=params, jitter=1e-6)
+    d = tempfile.mkdtemp(prefix="mfgp_serve_")
+    try:
+        ck0 = ckpt.ExplorationCheckpoint(
+            plan_num=0, t_now=0.0, planned_budget=0.0, x0=np.zeros((2, 1)),
+            model=ckpt.capture_model(model), data_rows=np.zeros((0, 9)),
+            rng_state=np.random.default_rng(0).bit_generator.state)
+        ckpt.save_checkpoint(os.path.join(d, "unit"), ck0)
+        del model
+        t0 = time.perf_counter()
+        with served.window("load"):
+            ms = serve.ModelServer.from_checkpoint(
+                os.path.join(d, "unit"), device=dev,
+                batch_wait=SERVE_BATCH_WAIT)
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    m = ms.model
+    out = {"n": int(m.X.shape[0]), "dtype": str(m.X.dtype),
+           "device": str(m.X.device), "load_and_condition_s": load_s}
+    check("serve (a) checkpoint restored float32 on the card",
+          m.X.dtype == torch.float32 and m.X.is_cuda,
+          f"{out['dtype']} on {out['device']}")
+    gnp = grid.cpu().numpy().astype(np.float64)
+    s, (mu_ref, var_ref) = wall(torch, lambda: m.predict(grid))
+    mu_ref, var_ref = (mu_ref.cpu().numpy(), var_ref.cpu().numpy())
+    out["direct_predict_s"] = s
+    h = Served(serve, ms)
+    try:
+        parts = np.array_split(np.arange(gnp.shape[0]), SERVE_CLIENTS)
+        l0, b0 = ms.batcher.launches, ck.LAUNCHES["ar1_cov_fused"]
+        r0 = ms.batcher.batched_requests
+        t0 = time.perf_counter()
+        with served.window("predict"):
+            res = concurrently([
+                (lambda p=p: h.call("POST", "/predict",
+                                    {"points": gnp[p].tolist()}))
+                for p in parts])
+        total = time.perf_counter() - t0
+        ok = all(not isinstance(r, Exception) and r[0] == 200
+                 for r, _ in res)
+        launches = ms.batcher.launches - l0
+        mu = np.concatenate([r[1]["mean"] for r, _ in res]) if ok else None
+        var = np.concatenate([r[1]["var"] for r, _ in res]) if ok else None
+        e_mu = rel_err(mu, mu_ref) if ok else None
+        e_var = rel_err(var, var_ref) if ok else None
+        out["predict"] = {
+            "clients": SERVE_CLIENTS, "points": int(gnp.shape[0]),
+            "launches": launches,
+            "requests_per_launch": (ms.batcher.batched_requests - r0)
+            / max(launches, 1),
+            "max_requests_per_launch": ms.batcher.max_requests_per_launch,
+            "request_s": [t for _, t in res], "total_s": total,
+            "grid_points_per_s": gnp.shape[0] / total,
+            "b1_launches": ck.LAUNCHES["ar1_cov_fused"] - b0,
+            "rel_err_mean": e_mu, "rel_err_var": e_var}
+        check("serve (a) 8 concurrent /predict",
+              ok and out["predict"]["requests_per_launch"] > 1
+              and e_mu <= SERVE_RTOL and e_var <= SERVE_RTOL
+              and out["predict"]["b1_launches"] > 0,
+              f"{launches} launches, {out['predict']['requests_per_launch']:.3g}"
+              f" requests per launch (> 1), vs direct predict: mean "
+              f"{e_mu}, var {e_var} (<= {SERVE_RTOL} of max |value|), B1 "
+              f"{out['predict']['b1_launches']} (> 0), {total:.4g} s")
+        with served.window("eid"):
+            code, eid = h.call("POST", "/eid", {"points": gnp.tolist()})
+        esum = float(np.sum(eid["eid"])) if code == 200 else None
+        check("serve (a) /eid sums to 1", code == 200
+              and abs(esum - 1.0) <= 1e-6, f"HTTP {code}, sum {esum}")
+        # /extend: 64 more points, then the grid against models
+        # conditioned from scratch on the same N + 64 points: float32 (the
+        # same arithmetic as the served one) and the float64 witness
+        g = np.random.default_rng(15)
+        lo, hi = (X.amin(0).cpu().numpy(), X.amax(0).cpu().numpy())
+        Xn = lo + (hi - lo) * g.random((SERVE_EXTEND, 3))
+        fn = g.integers(0, 3, SERVE_EXTEND)
+        yn = 10.0 * g.standard_normal(SERVE_EXTEND)
+        with served.window("extend"):
+            s, (code, ext) = wall(torch, lambda: h.call("POST", "/extend", {
+                "points": Xn.tolist(), "y": yn.tolist(),
+                "fid": fn.tolist()}))
+        with served.window("predict"):
+            code2, got = h.call("POST", "/predict", {"points": gnp.tolist()})
+        f32 = dict(dtype=torch.float32, device=dev)
+        ref = {}
+        for dt in (torch.float32, torch.float64):
+            pd = (params if dt == torch.float32 else
+                  MFGPParams.from_vector(params.to_vector().to(dt), 3, 3))
+            fresh = MFGP(torch.cat([X, torch.as_tensor(Xn, **f32)]).to(dt),
+                         torch.cat([fid, torch.as_tensor(fn, device=dev)]),
+                         torch.cat([y, torch.as_tensor(yn, **f32)]).to(dt),
+                         n_fidelities=3, params=pd, jitter=1e-6)
+            ref[dt] = [t.cpu().numpy() for t in fresh.predict(grid.to(dt))]
+            del fresh
+            torch.cuda.empty_cache()
+        ok = code == code2 == 200
+        got = [np.asarray(got["mean"]), np.asarray(got["var"])] if ok else None
+        errs = {}
+        for name, a, b in (("served_vs_f32", got, ref[torch.float32]),
+                           ("served_vs_f64", got, ref[torch.float64]),
+                           ("f32_vs_f64", ref[torch.float32],
+                            ref[torch.float64])):
+            errs[name] = ({"mean": rel_err(a[0], b[0]),
+                           "var": rel_err(a[1], b[1])} if a is not None
+                          else None)
+        out["extend"] = {"points": SERVE_EXTEND, "seconds": s,
+                         "n": ext.get("n"), "rel_err": errs,
+                         "tol": SERVE_EXTEND_F64,
+                         "tol_ratio": SERVE_EXTEND_RATIO}
+        within = ok and all(
+            errs["served_vs_f64"][k] <= SERVE_EXTEND_F64[k]
+            and errs["served_vs_f64"][k]
+            <= SERVE_EXTEND_RATIO * errs["f32_vs_f64"][k]
+            for k in SERVE_EXTEND_F64)
+        check("serve (a) /extend = conditioned from scratch in float64",
+              within and ext["n"] == X.shape[0] + SERVE_EXTEND,
+              f"n {ext.get('n')}; max abs error over max |value| (mean, "
+              f"var): served vs float64 {errs['served_vs_f64']} (<= "
+              f"{SERVE_EXTEND_F64} and <= {SERVE_EXTEND_RATIO}x float32 "
+              f"from scratch vs float64 {errs['f32_vs_f64']}); served vs "
+              f"float32 from scratch {errs['served_vs_f32']}")
+        out["health"] = h.call("GET", "/health")[1]
+    finally:
+        h.stop()
+        ms.close()
+    # B1 at the served shapes: a predict block (1,024 grid rows against
+    # the 20,000 training points) and /extend's cross-covariance
+    p = params
+    v, ls, rho = p.variances, p.lengthscales, p.rhos
+    Xb = grid[:1024]
+    fb = torch.full((Xb.shape[0],), 2, dtype=torch.long, device=dev)
+    Xe = torch.as_tensor(Xn, **f32)
+    fe = torch.as_tensor(fn, device=dev)
+    b1_path_check(torch, ck, "serve predict block", Xb, fb, X, fid, v, ls,
+                  rho)
+    b1_path_check(torch, ck, "serve extend", X, fid, Xe, fe, v, ls, rho)
+    N, D, per = X.shape[0], 3, 3 * 3 + 5
+
+    def shape(name, A, fa, B, fb_):
+        n1, n2 = A.shape[0], B.shape[0]
+        return (name, lambda: ck.ar1_cov_fused(A, fa, B, fb_, v, ls, rho),
+                lambda: ck.ar1_cov_fused_plain(A, fa, B, fb_, v, ls, rho),
+                4 * n1 * n2 + (n1 + n2) * (D * 4 + 8), n1 * n2 * 3 * per)
+
+    out["b1"] = b1_times(torch, ck, None, "rbf", launches=(
+        shape("predict_block", Xb, fb, X, fid),
+        shape("extend_cross", X, fid, Xe, fe)))
+    return out
+
+
+def serve_planner_part(torch, ck, dev, serve, setup, served) -> dict:
+    """(b): the study-size MFGP behind PlannerService (ergodic, mf_gain):
+    the first plan captured while clients hammer /predict, 8 concurrent
+    /plan requests against their solo plans, /refit, a /plan after it."""
+    import threading
+
+    from mfgp_tpu_torch.models.mfgp import MFGP
+
+    mf = setup["models"][torch.float32][0]
+
+    def model():
+        m = MFGP(mf.X.clone(), mf.fid.clone(), mf.y.clone(), n_fidelities=3,
+                 jitter=1e-6)
+        m.set_param_array(mf.param_array)
+        return m
+
+    grid = setup["grid"]
+    out = {"n": int(mf.X.shape[0])}
+    for cost in ("mf_gain", "ergodic"):
+        rec = out[cost] = {}
+        cap = CaptureCount(torch)
+        with served.window("load"):
+            ms = serve.ModelServer(model(), batch_wait=SERVE_BATCH_WAIT)
+        hm = Served(serve, ms)
+        svc = None
+        try:
+            load = cost == "mf_gain"  # the capture-under-load check
+            if load:
+                q = grid[::10]
+                mu_q, var_q = ms._predict_device(q)
+                stop, answers = threading.Event(), []
+
+                def hammer():
+                    while not stop.is_set():
+                        t0 = time.perf_counter()
+                        code, r = hm.call("POST", "/predict",
+                                          {"points": q.tolist()})
+                        answers.append((t0, time.perf_counter(), code, r))
+
+                hammers = [threading.Thread(target=hammer, daemon=True)
+                           for _ in range(4)]
+            # the plan captured under load against a service built
+            # without it: the same plan
+            body = {"start": [3.0, 5.0], "budget": SERVE_PLAN_B, "seed": 7}
+            with served.window("plan_warm"):
+                if load:
+                    for t in hammers:
+                        t.start()
+                    end = time.perf_counter() + SERVE_TIMEOUT_S
+                    while len(answers) < 4 and time.perf_counter() < end:
+                        time.sleep(0.005)
+                t0 = time.perf_counter()
+                svc = serve.PlannerService(ms, cost=cost,
+                                           plan_iters=SERVE_PLAN_ITERS,
+                                           warm=True)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if load:
+                    stop.set()
+                    for t in hammers:
+                        t.join(timeout=SERVE_TIMEOUT_S)
+                    loaded = svc.handle("/plan", body)
+            rec["warm_start_s"] = t1 - t0
+            rec["captures_warm"] = cap.n
+            if load:
+                during = [a for a in answers if a[0] < t1 and a[1] > t0]
+                bad = [a for a in answers if a[2] != 200]
+                errs = [max(rel_err(a[3]["mean"], mu_q),
+                            rel_err(a[3]["var"], var_q))
+                        for a in answers if a[2] == 200]
+                quiet = serve.PlannerService(
+                    serve.ModelServer(model()), cost=cost,
+                    plan_iters=SERVE_PLAN_ITERS, warm=True)
+                try:
+                    ref = quiet.handle("/plan", body)
+                finally:
+                    quiet.close()
+                rec["under_load"] = {
+                    "requests": len(answers), "during_capture": len(during),
+                    "failed": len(bad),
+                    "max_rel_err": max(errs, default=None)}
+                check("serve (b) capture under load",
+                      rec["captures_warm"] >= 1 and len(during) >= 1
+                      and not bad
+                      and max(errs, default=np.inf) <= SERVE_RTOL
+                      and loaded["path"] == ref["path"]
+                      and loaded["info"] == ref["info"],
+                      f"{rec['captures_warm']} captures while {len(during)} "
+                      f"of {len(answers)} /predict requests ran, {len(bad)} "
+                      f"failed, worst rel err {max(errs, default=None)} (<= "
+                      f"{SERVE_RTOL}); the plan equals an unloaded service's "
+                      f"{loaded['path'] == ref['path']}")
+            hm.stop()
+            hp = Served(serve, svc)
+            q = svc.plan_queue
+            launch_s, launch = [], q.launch_fn
+
+            def timed_launch(batch):
+                t = time.perf_counter()
+                try:
+                    return launch(batch)
+                finally:
+                    launch_s.append(time.perf_counter() - t)
+
+            q.launch_fn, window = timed_launch, q.max_wait
+            try:
+                q.max_wait = 1.0  # the clients land in one window
+                reqs = [{"start": [1.0 + i, 2.0 + 2 * i],
+                         "budget": SERVE_PLAN_B, "seed": i}
+                        for i in range(SERVE_CLIENTS)]
+                q0, c0 = svc.plan_queue.launches, cap.n
+                t0 = time.perf_counter()
+                with served.window("plan"):
+                    res = concurrently([
+                        (lambda b=b: hp.call("POST", "/plan", b))
+                        for b in reqs])
+                coalesced = time.perf_counter() - t0
+                launches = svc.plan_queue.launches - q0
+                stats = dict(svc.planner.stats)
+                caps = cap.n - c0
+                q.max_wait = window
+                n_launch = len(launch_s)
+                solo, solo_s = [], []
+                for b in reqs:
+                    with served.window("plan"):
+                        s, r = wall(torch, lambda b=b: hp.call(
+                            "POST", "/plan", b))
+                    solo.append(r[1])
+                    solo_s.append(s)
+                ok = all(not isinstance(r, Exception) and r[0] == 200
+                         for r, _ in res)
+                same = exact = 0
+                for (r, _), s in zip(res, solo):
+                    if isinstance(r, Exception):
+                        continue
+                    a, b = np.asarray(r[1]["path"]), np.asarray(s["path"])
+                    exact += r[1]["path"] == s["path"]
+                    same += (r[1]["n_nodes"] == s["n_nodes"]
+                             and a.shape == b.shape
+                             and np.allclose(a, b, rtol=SERVE_PATH_TOL,
+                                             atol=SERVE_PATH_TOL))
+                rec["coalesced"] = {
+                    "launches": launches, "planner_stats": stats,
+                    "launch_s": launch_s[n_launch - 1],
+                    "solo_launch_s": launch_s[n_launch:],
+                    "window_s": 1.0, "solo_window_s": window,
+                    "max_requests_per_launch":
+                        svc.plan_queue.max_requests_per_launch,
+                    "captures": caps, "seconds": coalesced,
+                    "solo_seconds": solo_s, "solo_total_s": sum(solo_s),
+                    "equal_to_solo": same, "bit_equal_to_solo": exact,
+                    "info": [s["info"] for s in solo],
+                    "captures_solo": cap.n - c0 - caps}
+                check(f"serve (b) {cost}: 8 /plan in one launch",
+                      ok and launches == 1 and same == SERVE_CLIENTS
+                      and svc.plan_queue.max_requests_per_launch
+                      == SERVE_CLIENTS
+                      and rec["coalesced"]["captures_solo"] == 0,
+                      f"{launches} plan_batch launch(es), {caps} capture(s);"
+                      f" lanes equal to their solo plans: {same} of "
+                      f"{SERVE_CLIENTS} (within {SERVE_PATH_TOL}; bit for "
+                      f"bit {exact}); the 8-lane launch "
+                      f"{launch_s[n_launch - 1]:.4g} s against "
+                      f"{sum(launch_s[n_launch:]):.4g} s for the 8 solo "
+                      f"launches; solo captures "
+                      f"{rec['coalesced']['captures_solo']}")
+                with served.window("refit"):
+                    s, (code, ref) = wall(torch, lambda: hp.call(
+                        "POST", "/refit", {"restarts": 4, "maxiter": 20}))
+                cleared = not svc._eid_cache and svc._gain_cache is None
+                with served.window("plan"):
+                    code2, after = hp.call("POST", "/plan", reqs[0])
+                rec["refit"] = {"seconds": s, "nlml": ref.get("nlml"),
+                                "prior_sig": ref.get("prior_sig"),
+                                "plan_after": after.get("info")}
+                check(f"serve (b) {cost}: /refit then /plan",
+                      code == code2 == 200 and cleared
+                      and np.isfinite(ref["nlml"])
+                      and np.isfinite(after["info"]),
+                      f"NLML {ref.get('nlml')}, caches cleared {cleared}, "
+                      f"plan info after {after.get('info')}")
+            finally:
+                hp.stop()
+        finally:
+            if svc is not None:
+                svc.close()
+            else:
+                ms.close()
+            hm.stop()
+            cap.restore()
+    return out
+
+
+def serve_mission_part(torch, dev, serve, cli, served) -> dict:
+    """(c): MissionService; the command line's default mission at seeds 0
+    and 1 (the second warm, capturing nothing), seed 0 against a direct
+    run, then ``cli mission --submit URL``."""
+    from mfgp_tpu_torch.sim import mission_device as md
+    from mfgp_tpu_torch.utils.configs import ExperimentConfig
+
+    cap = CaptureCount(torch)
+    svc = serve.MissionService(device=dev)
+    h = Served(serve, svc)
+    out = {"jobs": []}
+    try:
+        def run_job(seed):
+            c0 = cap.n
+            t0 = time.perf_counter()
+            _, sub = h.call("POST", "/mission", dict(SERVE_MISSION,
+                                                     seed=seed))
+            while time.perf_counter() - t0 < SERVE_TIMEOUT_S:
+                _, job = h.call("GET", f"/mission/{sub['job']}")
+                if job["state"] in ("done", "error"):
+                    break
+                time.sleep(0.01)
+            job.update(time_to_result_s=time.perf_counter() - t0,
+                       captures=cap.n - c0)
+            out["jobs"].append(job)
+            return job
+
+        with served.window("mission"):
+            j0, j1 = run_job(0), run_job(1)
+        m = md.DeviceMission(ExperimentConfig(**MISSION_EXP), seed=0,
+                             device=dev)
+        direct = m.run()
+        del m
+        ref = MISSION_RMSE0.get("rmse")
+        done = j0["state"] == j1["state"] == "done"
+        r0 = j0["result"]["rmse"] if done else None
+        check("serve (c) missions: the second warm, capturing nothing",
+              done and not j0["warm"] and j1["warm"]
+              and j0["captures"] > 0 and j1["captures"] == 0,
+              f"states {j0['state']}/{j1['state']}, warm "
+              f"{j0.get('warm')}/{j1.get('warm')}, captures "
+              f"{j0['captures']}/{j1['captures']}, time to result "
+              f"{j0['time_to_result_s']:.4g} / {j1['time_to_result_s']:.4g}"
+              f" s")
+        def same_rmse(a, b):
+            return b is None or abs(a - b) <= SERVE_RTOL * abs(b)
+
+        check("serve (c) seed 0 = the direct mission",
+              done and same_rmse(r0, direct.rmse) and same_rmse(r0, ref),
+              f"RMSE served {r0}, direct {direct.rmse}, phase 14's "
+              f"command line {ref} (within {SERVE_RTOL} relative)")
+        buf = io.StringIO()
+        c0 = cap.n
+        with served.window("mission"), contextlib.redirect_stdout(buf):
+            cli.main(["mission", "--submit", h.url])
+        job = json.loads(buf.getvalue().strip().splitlines()[-1])
+        job["captures"] = cap.n - c0
+        out["cli_submit"] = job
+        check("serve (c) cli mission --submit",
+              job["state"] == "done" and job["warm"]
+              and same_rmse(job["result"]["rmse"], r0)
+              and job["captures"] == 0,
+              f"{job['state']}, warm {job.get('warm')}, RMSE "
+              f"{job.get('result', {}).get('rmse')}, "
+              f"{job.get('client_seconds')} s, captures {job['captures']}")
+        out["direct_rmse"] = direct.rmse
+    finally:
+        h.stop()
+        svc.close()
+        cap.restore()
+    return out
+
+
+def serve_phase(torch, ck, cov, dev) -> dict:
+    """Phase 15 (see the module docstring). Returns the launches of the
+    served calls of (a)-(c) alone (``ServedLaunches``), B1's with every
+    replay of a captured planner launch."""
+    from mfgp_tpu_torch import cli, serve
+    from mfgp_tpu_torch.models import mfgp as mf
+    from mfgp_tpu_torch.planning import rig_device as rd
+
+    parts, t_phase = {}, time.perf_counter()
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    problem = make_problem(torch, mf, dev)
+    setup = planner_setup(torch, dev)
+    part("setup")
+    smi = nvidia_smi()
+    served = ServedLaunches(ck, rd)
+    try:
+        a = serve_model_part(torch, ck, dev, serve, problem, served)
+        part("a_model")
+        del problem
+        torch.cuda.empty_cache()
+        b = serve_planner_part(torch, ck, dev, serve, setup, served)
+        part("b_planner")
+        c = serve_mission_part(torch, dev, serve, cli, served)
+        part("c_mission")
+    finally:
+        served.restore()
+    launches = served.counts
+    check("serve launches", launches["ar1_cov_fused"] > 0
+          and all(n > 0 for n in served.b1_by_route.values()),
+          f"{launches}; B1 by route {served.b1_by_route} (planner "
+          f"replays included: {served.replayed})")
+    emit("serve_model", nvidia_smi=smi, **a)
+    emit("serve_planner", nvidia_smi=smi, **b)
+    emit("serve_mission", nvidia_smi=smi, **c)
+    emit("serve_launches", launches=launches, b1_by_route=served.b1_by_route,
+         b1_replayed=served.replayed)
+    emit("serve_seconds", **parts)
+    return launches
+
+
 NEW_PHASES = ("study", "study_f64", "study_batched", "nigp", "recursive",
-              "planner", "explore", "device_planner", "mission")
+              "planner", "explore", "device_planner", "mission", "serve")
 
 
 def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
-    """Phases 7 to 14 in turn (the batched study, 10, after the study's
+    """Phases 7 to 15 in turn (the batched study, 10, after the study's
     phases, whose dataset it compares with); returns each path's launches
     by phase."""
     launches = {}
@@ -4368,11 +5139,14 @@ def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
     torch.cuda.empty_cache()
     if "mission" in only:
         launches["mission"] = mission_phase(torch, ck, cov, dev)
+    torch.cuda.empty_cache()
+    if "serve" in only:
+        launches["serve"] = serve_phase(torch, ck, cov, dev)
     return launches
 
 
 def only_phases(names) -> int:
-    """``--only``: the build and the named phases of 7 to 14; no result
+    """``--only``: the build and the named phases of 7 to 15; no result
     line."""
     import torch
 
@@ -4405,11 +5179,13 @@ def only_phases(names) -> int:
 def main(argv) -> int:
     if argv[:1] == ["--b1-times"] and len(argv) == 2:
         return b1_times_only(argv[1])
+    if argv[:1] == ["--eval-times"] and len(argv) == 2:
+        return eval_times_only(argv[1])
     if argv[:1] == ["--only"] and len(argv) == 2:
         return only_phases(argv[1].split(","))
     if argv:
-        print("usage: chip_smoke.py [--b1-times ROOT | --only PHASE,...]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--b1-times ROOT | --eval-times ROOT | "
+              "--only PHASE,...]", file=sys.stderr)
         return 2
     import torch
 

@@ -40,7 +40,13 @@ sim.explore       ``ExplorationSim``: the closed loop (EID, replan, flight,
                   refit); sim.dynamics: RK4 and toy models
 utils.checkpoint  npz checkpoints of a closed-loop run (the JAX package's
                   layout) and model restore
-cli               ``python -m mfgp_tpu_torch.cli explore ...`` and eight more
+utils.profiling   ``PhaseTimer``, ``timed`` and ``device_trace`` (a
+                  ``torch.profiler`` Chrome trace)
+serve             the model, planner, router and mission services over HTTP
+viz               model replay from artifacts and the headless figures
+native            ctypes binding of the repository's C++ CSV reader/writer
+cli               ``python -m mfgp_tpu_torch.cli explore ...`` and the JAX
+                  package's thirteen other commands
 
 Everything that builds tensors takes ``device``: the card by default, an
 error where there is no CUDA device, the CPU only when asked

@@ -10,7 +10,12 @@
   python -m mfgp_tpu_torch.cli study    --out D [--fit-mode device] ...
   python -m mfgp_tpu_torch.cli explore  [--variant MFEGP|SFGP|...] --out D
   python -m mfgp_tpu_torch.cli mission  [--variant MFEGP] [--flight dynamic]
+                                        [--submit URL]
+  python -m mfgp_tpu_torch.cli mission-server [--port 8080]
   python -m mfgp_tpu_torch.cli campaign [--variants MFEGP,MFGP,SFEGP,SFGP]
+                                        [--plot out.png]
+  python -m mfgp_tpu_torch.cli serve    ck.npz | name=ck.npz ... [--plan-cost C]
+  python -m mfgp_tpu_torch.cli plot     data.csv --out fig.png [--gpres]
   python -m mfgp_tpu_torch.cli infogain-test      # info-gain identity check
 
 Every command runs on the card and raises where there is no CUDA device,
@@ -20,9 +25,10 @@ and the study also report, on standard error, how many WMSE metrics were
 redone in float64 (on the same device). ``explore``, ``mission`` and
 ``campaign`` run their models' covariance tiles in float32 on the card and
 everything in float64 with ``--cpu``, what the JAX package computes on the
-TPU and on the CPU. Not here yet (ROADMAP A7): the ``serve`` and ``plot``
-commands, and the mission server (``mission-server``, ``mission
---submit``) and ``campaign --plot``, which raise.
+TPU and on the CPU. ``serve`` and ``mission-server`` run until interrupted;
+``serve`` serves a checkpoint's model in float32 on the card (as saved with
+``--cpu``). ``mission --submit URL`` runs nothing locally: it posts the
+mission to a mission server and prints the finished job.
 """
 
 from __future__ import annotations
@@ -235,8 +241,7 @@ def cmd_mission(args):
     import time
 
     if args.submit:
-        raise NotImplementedError("mission --submit goes through the "
-                                  "mission server: ROADMAP A7")
+        return _submit_mission(args)
     device = _device(args)
     from mfgp_tpu_torch.utils.configs import ExperimentConfig
 
@@ -284,9 +289,53 @@ def cmd_mission(args):
     print(json.dumps(out))
 
 
+SUBMIT_TIMEOUT_S = 3600.0  # a submitted mission's longest wait
+
+
+def _submit_mission(args):
+    """POST the mission spec to a mission server and poll the job to its
+    end (``SUBMIT_TIMEOUT_S`` at most): the time to a result excludes the
+    building and capturing that the server's warm mission already did
+    (see serve.MissionService)."""
+    import time
+    import urllib.request
+
+    spec = {"variant": args.variant, "seed": args.seed,
+            "budget": args.budget, "bd": args.bd,
+            "plan_iters": args.plan_iters, "e_max": args.e_max,
+            "update_hyps": args.update_hyps, "flight": args.flight,
+            "ergodic_metric": args.ergodic_metric,
+            "info_cost": args.info_cost,
+            "fit_restarts": args.fit_restarts,
+            "glide_stride": args.glide_stride}
+    url = args.submit.rstrip("/")
+    t0 = time.perf_counter()
+
+    def call(req):
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return json.loads(r.read())
+
+    sub = call(urllib.request.Request(
+        url + "/mission", json.dumps(spec).encode(),
+        {"Content-Type": "application/json"}))
+    while True:
+        job = call(f"{url}/mission/{sub['job']}")
+        if job["state"] in ("done", "error"):
+            break
+        if time.perf_counter() - t0 > SUBMIT_TIMEOUT_S:
+            raise TimeoutError(f"mission job {sub['job']} not done after "
+                               f"{SUBMIT_TIMEOUT_S} s: {job}")
+        time.sleep(0.5)
+    job["client_seconds"] = round(time.perf_counter() - t0, 3)
+    print(json.dumps(job))
+
+
 def cmd_mission_server(args):
-    raise NotImplementedError("mission-server (serve.MissionService) is "
-                              "not ported: ROADMAP A7")
+    """Long-lived mission-submission server (serve.MissionService)."""
+    device = _device(args)
+    from mfgp_tpu_torch.serve import serve_missions
+
+    serve_missions(host=args.host, port=args.port, device=device)
 
 
 def cmd_campaign(args):
@@ -294,9 +343,6 @@ def cmd_campaign(args):
     seeds, one mission ensemble per variant."""
     import time
 
-    if args.plot:
-        raise NotImplementedError("campaign --plot goes through "
-                                  "viz.plot_campaign: ROADMAP A7")
     device = _device(args)
     from mfgp_tpu_torch.sim.mission_device import run_campaign
 
@@ -310,6 +356,10 @@ def cmd_campaign(args):
         plan_iters=args.plan_iters, e_max=args.e_max, device=device)
     out = {"campaign_seconds": round(time.perf_counter() - t0, 3),
            "runs": sum(len(c["rmse"]) for c in camp.values())}
+    if args.plot:
+        from mfgp_tpu_torch.viz import plot_campaign
+
+        out["plot"] = plot_campaign(camp, args.plot)
     for v, c in camp.items():
         out[v] = {"rmse_mean": round(float(np.mean(c["rmse"])), 4),
                   "rmse": [round(r, 4) for r in c["rmse"]],
@@ -347,6 +397,51 @@ def cmd_infogain_test(args):
     print(json.dumps({"exact": exact, "sequential": seq,
                       "rel_err": abs(exact - seq) / abs(exact),
                       "reference_style_score": ref_style}))
+
+
+def cmd_serve(args):
+    """Serve trained model checkpoint(s) over HTTP (posterior + EID).
+
+    One positional checkpoint serves single-model; repeat ``name=path``
+    pairs route multiple models (/models/<name>/predict)."""
+    device = _device(args)
+    from mfgp_tpu_torch.serve import serve_checkpoint, serve_checkpoints
+
+    def is_pair(c):
+        # name=path where the name is a bare identifier: a lone path that
+        # merely contains '=' (e.g. /data/run=3/ck.npz) is not a pair
+        name, sep, _ = c.partition("=")
+        return bool(sep) and name.isidentifier()
+
+    if all(is_pair(c) for c in args.checkpoint):
+        if args.plan_cost:
+            raise SystemExit("--plan-cost serves ONE model (no name=path "
+                             "routing)")
+        paths = dict(c.split("=", 1) for c in args.checkpoint)
+        serve_checkpoints(paths, host=args.host, port=args.port,
+                          device=device)
+    else:
+        if len(args.checkpoint) != 1:
+            raise SystemExit("either ONE checkpoint or name=path pairs")
+        serve_checkpoint(args.checkpoint[0], host=args.host, port=args.port,
+                         plan_cost=args.plan_cost,
+                         plan_iters=args.plan_iters, device=device)
+
+
+def cmd_plot(args):
+    """Headless CSV/GPRes plotting (the reference dataPlotter capability);
+    host only, no device."""
+    from mfgp_tpu_torch.viz import plot_csv, plot_gpres
+
+    if args.gpres:
+        out = plot_gpres(args.csv, args.out)
+    else:
+        def conv(c):
+            return int(c) if c.isdigit() else c
+
+        out = plot_csv(args.csv, args.out, x=conv(args.x),
+                       y=[conv(c) for c in args.y], kind=args.kind)
+    print(json.dumps({"figure": out}))
 
 
 def build_parser():
@@ -462,11 +557,16 @@ def build_parser():
                         "(plannedTraj{n}.csv, EID{n}.csv, hyps.csv, "
                         "GPData.csv, replans.csv) to this directory")
     p.add_argument("--submit", default=None, metavar="URL",
-                   help="submit to a mission server (not ported: ROADMAP "
-                        "A7; raises)")
+                   help="submit to a long-lived mission server "
+                        "(cli mission-server) instead of running locally: "
+                        "a repeated configuration reuses its built, "
+                        "captured mission")
 
-    p = sub.add_parser("mission-server", help="not ported (ROADMAP A7); "
-                       "raises")
+    p = sub.add_parser(
+        "mission-server",
+        help="long-lived mission-submission server (serve.MissionService):"
+             " keeps each configuration's built mission and captured "
+             "graphs across POST /mission submissions")
     p.set_defaults(fn=cmd_mission_server)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
@@ -486,7 +586,8 @@ def build_parser():
                    choices=["auto", "one", "stepped"])
     p.add_argument("--seed-chunk", type=int, default=None)
     p.add_argument("--plot", default=None,
-                   help="campaign figure (not ported: ROADMAP A7; raises)")
+                   help="also render the per-variant RMSE figure to "
+                        "this PNG")
 
     p = sub.add_parser("aggregate"); p.set_defaults(fn=cmd_aggregate)
     p.add_argument("pattern"); p.add_argument("--out")
@@ -518,6 +619,28 @@ def build_parser():
     p.add_argument("--ftol", type=float, default=1e-6,
                    help="device-batched only: relative-f stagnation stop "
                         "of the restart-batched L-BFGS lanes")
+
+    p = sub.add_parser("serve"); p.set_defaults(fn=cmd_serve)
+    p.add_argument("checkpoint", nargs="+",
+                   help="one checkpoint path, or name=path pairs for "
+                        "multi-model routing")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--plan-cost", default=None,
+                   choices=("ergodic", "fourier", "sf_gain", "mf_gain",
+                            "sf_logdet", "mf_logdet"),
+                   help="enable POST /plan (replan-as-a-service on the "
+                        "device planner) with this scoring family")
+    p.add_argument("--plan-iters", type=int, default=100,
+                   help="device-planner iterations per /plan request")
+
+    p = sub.add_parser("plot"); p.set_defaults(fn=cmd_plot)
+    p.add_argument("csv"); p.add_argument("--out", required=True)
+    p.add_argument("--x", default="0")
+    p.add_argument("--y", nargs="+", default=["1"])
+    p.add_argument("--kind", default="line", choices=["line", "scatter"])
+    p.add_argument("--gpres", action="store_true",
+                   help="treat input as a GPRes artifact (scatter vs truth)")
     return ap
 
 

@@ -1,5 +1,6 @@
 """CSV dataset I/O, byte-compatible with the reference ``Data/`` schemas
-(counterpart of ``mfgp_tpu/data/io.py``; numpy only).
+(counterpart of ``mfgp_tpu/data/io.py``; numpy, and ``native``'s
+parser where it is built).
 
 Schemas covered (SURVEY §5 metrics/observability):
 
@@ -35,9 +36,10 @@ def _load_csv(path):
     with open(path) as f:
         headers = f.readline().strip().lstrip("#").split(",")
     headers = [h.strip() for h in headers]
-    # numpy's parser; the JAX package's optional native strtod parser gives
-    # the same array for well-formed files
-    data = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    from mfgp_tpu_torch import native
+
+    # native single-pass strtod parser when built, numpy otherwise
+    data = native.load_csv(path, skiprows=1)
     return headers, data
 
 

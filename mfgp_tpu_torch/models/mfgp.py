@@ -346,11 +346,21 @@ def predict(params: MFGPParams, state: MFGPState, Xs, fid_s,
 
 def _blocked(one, block_size: int, *rows):
     """``one`` over blocks of ``block_size`` rows of each of ``rows``; the
-    (mean, var) pairs concatenated."""
+    (mean, var) pairs concatenated. The last block is padded to the full
+    size by repeating its last row, as the JAX package's ``lax.map`` over
+    padded blocks does: every block has one shape, so the libraries take
+    one algorithm for all of them and a row's result does not depend on
+    the rows queried with it (a served batch answers each request as the
+    same query alone would be answered)."""
+    M = rows[0].shape[0]
+    pad = -M % block_size
+    if pad:
+        rows = [torch.cat([r, r[-1:].expand((pad,) + r.shape[1:])])
+                for r in rows]
     outs = [one(*(r[lo:lo + block_size] for r in rows))
-            for lo in range(0, rows[0].shape[0], block_size)]
-    return (torch.cat([o[0] for o in outs]),
-            torch.cat([o[1] for o in outs]))
+            for lo in range(0, M, block_size)]
+    return (torch.cat([o[0] for o in outs])[:M],
+            torch.cat([o[1] for o in outs])[:M])
 
 
 def predict_blocked(params: MFGPParams, state: MFGPState, Xs, fid_s,

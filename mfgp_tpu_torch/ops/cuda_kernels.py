@@ -79,9 +79,8 @@ def ar1_cov_fused_lanes_plain(X1, fid1, X2, fid2, variances, lengthscales,
 
 
 def _grad_from_sums(sv, sv2, diagW, X, fid, lengthscales, noises, kern):
-    """(g_logvar, g_logls, g_lognoise) from the (F, 1+D, N) sums of B2 or
-    of its plain version, and diag(W) (pallas_kernels.py:622-644). Every
-    argument may carry a leading lane axis."""
+    """(g_logvar, g_logls, g_lognoise) from the (F, 1+D, N) sums of B2
+    and diag(W) (pallas_kernels.py:622-644)."""
     s = sv[..., 0, :]
     g_logvar = 0.5 * torch.sum(s, dim=-1)
     s2, Ax2 = (s, sv[..., 1:, :]) if kern == "rbf" else (sv2[..., 0, :],
@@ -89,57 +88,92 @@ def _grad_from_sums(sv, sv2, diagW, X, fid, lengthscales, noises, kern):
     inv_ls = 1.0 / lengthscales
     g_logls = (torch.einsum("...nd,...mn->...md", X ** 2, s2)
                - torch.einsum("...nd,...mdn->...md", X, Ax2)) * inv_ls ** 2
-    g_lognoise = torch.stack([
+    return g_logvar, g_logls, _g_lognoise(diagW, fid, noises)
+
+
+def _g_lognoise(diagW, fid, noises):
+    """The noise gradients ``0.5 noise_f sum_{fid_i = f} W_ii``."""
+    return torch.stack([
         0.5 * noises[..., f] * torch.sum(torch.where(fid == f, diagW, 0.0),
                                          dim=-1)
         for f in range(noises.shape[-1])], dim=-1)
-    return g_logvar, g_logls, g_lognoise
+
+
+# elements of one row block of grad_from_kinv's N x N terms (256 MB in
+# float32): each block's few temporaries stay well under one N x N matrix
+_GRAD_BLOCK_ELEMS = 1 << 26
 
 
 def grad_from_kinv(Kinv, alpha, X, fid, variances, lengthscales, rhos,
                    noises, kern: str = "rbf"):
     """(g_logvar, g_logls, g_lognoise) of the AR1 NLML from an explicit
     ``K^-1`` by the trace identities (``mfgp_tpu/models/mfgp.py:271-302``).
-    With W = K^-1 - alpha alpha^T and T_m = var_m (w_m w_m^T) o k_m, it
-    forms the sums that the B2 kernel forms: ``(W o T_m) [1, X]`` per
-    fidelity and, for matern32 (whose lengthscale derivative 3 var_m w w^T
-    e^{-sqrt3 r} r_d^2 is not proportional to the covariance), the same
-    for ``W o (3 var_m w w^T e^{-sqrt3 r})``, then ``_grad_from_sums``.
+    With W = K^-1 - alpha alpha^T, T_m = var_m (w_m w_m^T) o k_m and
+    S_d = (x_d 1^T - 1 x_d^T)^2:
+
+      g_logvar_m     = sum(W o T_m) / 2
+      g_logls_{m,d}  = sum(W o T_m o S_d) / (2 l_{m,d}^2),
+                       with T_m replaced for matern32 by var_m (w w^T)
+                       3 e^{-sqrt3 r} (its lengthscale derivative is not
+                       proportional to the covariance)
+      g_lognoise_f   = noise_f sum_{fid_i = f} W_ii / 2
+
+    The distances and S_d are summed from differences, as B1 takes them:
+    the norm expansion |x|^2 + |y|^2 - 2 x.y and the contraction x^2 s -
+    x (A x) cancel in float32 for close points far from the origin
+    (ROADMAP C5). The N x N terms are formed a block of rows at a time.
 
     Every argument may carry one leading lane axis, each lane its own
     problem (Kinv (L, N, N), alpha (L, N), X (L, N, D), fid (L, N),
     variances (L, F), lengthscales (L, F, D), rhos (L, F-1), noises
     (L, F)): the batched fits' gradient, whose sums never mix lanes."""
-    N = X.shape[-2]
+    N, D = X.shape[-2:]
     F = variances.shape[-1]
+    lead = X.shape[:-2]
     W = _k.ar1_fidelity_weights(rhos, F)
     w = torch.gather(W, -1, fid[..., None, :].expand(*W.shape[:-1], N))
-    Wm = Kinv - alpha[..., :, None] * alpha[..., None, :]
-    ones_x = torch.cat([X.new_ones(X.shape[:-1] + (1,)), X], dim=-1)
-    sv, sv2 = [], []
-    for m in range(F):  # one N x N term alive at a time
-        wm = w[..., m, :]
-        ww = wm[..., :, None] * wm[..., None, :]
-        inv_l = (1.0 / lengthscales[..., m, :])[..., None, :]
-        r2 = _k.sqdist(X, X, inv_l)
-        vm = variances[..., m, None, None]
-        if kern == "rbf":
-            T = vm * ww * torch.exp(-0.5 * r2)
-        else:
-            r = torch.sqrt(r2 + 1e-36)
-            T = vm * ww * ((1.0 + _k._SQRT3 * r) * torch.exp(-_k._SQRT3 * r))
-        sv.append(((Wm * T) @ ones_x).mT)
-        del T
-        if kern == "matern32":
-            E = vm * ww * (3.0 * torch.exp(-_k._SQRT3 * r))
-            del r
-            sv2.append(((Wm * E) @ ones_x).mT)
+    inv_ls2 = (1.0 / lengthscales) ** 2
+    rows = max(1, _GRAD_BLOCK_ELEMS // (N * max(1, lead.numel())))
+    g_logvar = X.new_zeros(lead + (F,))
+    quad = X.new_zeros(lead + (F, D))
+    for i0 in range(0, N, rows):
+        i1 = min(N, i0 + rows)
+        Wb = (Kinv[..., i0:i1, :]
+              - alpha[..., i0:i1, None] * alpha[..., None, :])
+        # S_d = (x_id - x_jd)^2 over the block's rows i, (..., D, b, N):
+        # every fidelity's distances and lengthscale sums read them
+        S = torch.stack([(X[..., i0:i1, None, d] - X[..., None, :, d]) ** 2
+                         for d in range(D)], dim=-3)
+        for m in range(F):
+            # elementwise sums, not a contraction over d: a lane's result
+            # does not depend on how many lanes are evaluated with it
+            il2 = inv_ls2[..., m, :, None, None]
+            r2 = S[..., 0, :, :] * il2[..., 0, :, :]
+            for d in range(1, D):
+                r2.addcmul_(S[..., d, :, :], il2[..., d, :, :])
+            wm = w[..., m, :]
+            A = Wb * (variances[..., m, None, None] * wm[..., i0:i1, None]
+                      * wm[..., None, :])
+            if kern == "rbf":
+                A.mul_(torch.exp(r2.mul_(-0.5)))
+                E = A
+            else:
+                r = torch.sqrt(r2.add_(1e-36))
+                e3 = torch.exp(-_k._SQRT3 * r)
+                E = (A * 3.0).mul_(e3)
+                A.mul_(e3.mul_(r.mul_(_k._SQRT3).add_(1.0)))
+                del r, e3
+            del r2
+            g_logvar[..., m] += torch.sum(A, dim=(-2, -1))
+            del A
+            for d in range(D):
+                quad[..., m, d] += torch.sum(E * S[..., d, :, :],
+                                             dim=(-2, -1))
             del E
-        del ww, r2
-    return _grad_from_sums(torch.stack(sv, dim=-3),
-                           torch.stack(sv2, dim=-3) if sv2 else None,
-                           torch.diagonal(Wm, dim1=-2, dim2=-1), X, fid,
-                           lengthscales, noises, kern)
+        del S, Wb
+    diagW = torch.diagonal(Kinv, dim1=-2, dim2=-1) - alpha * alpha
+    return (0.5 * g_logvar, 0.5 * quad * inv_ls2,
+            _g_lognoise(diagW, fid, noises))
 
 
 def syrk_grad_fused_plain(Linv, alpha, X, fid, variances, lengthscales,
@@ -468,6 +502,11 @@ def syrk_grad_fused(Linv, alpha, X, fid, variances, lengthscales, rhos,
     if Linv.shape != (N, N) or alpha.shape != (N,):
         raise ValueError(f"syrk_grad_fused: Linv {tuple(Linv.shape)}, alpha "
                          f"{tuple(alpha.shape)} for N={N}")
+    # the gradient depends on differences of points only: centred points
+    # keep the assembly's x^2 s - x (A x) from cancelling for points far
+    # from the origin (ROADMAP C5: 86x off at close points near 15, 5.6e-3
+    # at lengthscale 0.3 over the simulator's box, against a 2e-3 bar)
+    X = (X - X.mean(dim=0)).contiguous()
     A, w = _prep(X, fid, variances, lengthscales, rhos)
     F = A.shape[0]
     # the kernel's cross-block sums are float64 (see csrc/syrk_grad.cu), and

@@ -162,6 +162,8 @@ class DeviceRIG:
     graph and replays it for the rest.
     """
 
+    MAX_GRAPHS = 4  # captured iterations kept, one per shape
+
     def __init__(self, cfg: AgentConfig, *, delta: float, B: float, WS,
                  R: float, Rd: float = 0.0, same_node_distance: float = 0.0,
                  budget_cutoff: float = 0.9, max_iter: int = 40,
@@ -244,7 +246,10 @@ class DeviceRIG:
         self._strict_upper_S = torch.triu(torch.ones(
             (S, S), dtype=torch.bool, device=self.device), diagonal=1)
         self.stats: dict = {}  # the last plan's iterations, replays, B1
-        self._graph = None  # the last plan's captured iteration
+        # captured iterations by shapes (lane counts, grid, state), oldest
+        # first: a plan_batch service's padded widths 1, 2, 4 and 8 each
+        # keep theirs instead of recapturing whenever the width changes
+        self._graphs: dict = {}
 
     # -- draws ---------------------------------------------------------------
     @property
@@ -1061,7 +1066,8 @@ class DeviceRIG:
         state and draws have the same shapes (a mission's replans) copies
         its values into the captured buffers and replays every iteration,
         so it captures nothing. Its state is then those buffers, which the
-        next call overwrites."""
+        next call of those shapes overwrites. The last ``MAX_GRAPHS``
+        shapes keep their captures."""
         from mfgp_tpu_torch.ops import cuda_kernels as _ck
 
         with torch.no_grad():
@@ -1070,8 +1076,8 @@ class DeviceRIG:
             it = torch.zeros((), dtype=torch.long, device=self.device)
             n0 = _ck.LAUNCHES["ar1_cov_fused"]
             key = _shapes((ctx, st, draws))
-            g = self._graph
-            if self.graph and g is not None and g["key"] == key:
+            g = self._graphs.get(key)
+            if self.graph and g is not None:
                 _copy_into(g["args"], (ctx, st, draws))
                 g["it"].zero_()
                 for _ in range(self.max_iter):
@@ -1111,8 +1117,10 @@ class DeviceRIG:
                               b1_launches=(n1 - n0) + captured
                               * (self.max_iter - 1))
             # its memory pool outlives the replays
-            self._graph = dict(key=key, graph=g, args=(ctx, st, draws),
-                               it=it, b1=captured)
+            if len(self._graphs) >= self.MAX_GRAPHS:
+                del self._graphs[next(iter(self._graphs))]
+            self._graphs[key] = dict(graph=g, args=(ctx, st, draws), it=it,
+                                     b1=captured)
             return st
 
     def _args(self, x0s, Bs, eid, gp):
@@ -1184,7 +1192,9 @@ class DeviceRIG:
         the fleet-serving form of :meth:`plan_ensemble`: concurrent replan
         requests against the same model (shared ``eid``/``gp``). Lane k
         draws from a generator seeded with ``seeds[k]`` unless ``draws``
-        (K, max_iter, draw_width) are given."""
+        (K, max_iter, draw_width) are given. The lanes are padded to the
+        next power of two by repeating lane 0 (as the JAX package pads
+        them), so a service of varying fleet sizes captures few widths."""
         x0s = np.atleast_2d(np.asarray(x0s, float))
         K = x0s.shape[0]
         if draws is None:
@@ -1192,9 +1202,14 @@ class DeviceRIG:
                 raise ValueError("seeds must align with x0s")
             draws = torch.cat([self.draws(torch.Generator().manual_seed(
                 int(s)), 1) for s in seeds])
-        x0t, Bt, eidt, gpt = self._args(x0s, Bs, eid, gp)
+        draws = self._lane_draws(draws, 0, K)
+        Bs = np.broadcast_to(np.asarray(self.B if Bs is None else Bs,
+                                        float).reshape(-1), (K,))
+        idx = np.zeros(1 << (K - 1).bit_length(), np.int64)
+        idx[:K] = np.arange(K)
+        x0t, Bt, eidt, gpt = self._args(x0s[idx], Bs[idx], eid, gp)
         st = self._to_host(self._run(x0t, Bt, eidt, gpt,
-                                     self._lane_draws(draws, 0, K)))
+                                     draws[torch.as_tensor(idx)]))
         return [self._extract(st, i) for i in range(K)]
 
     _HOST_KEYS = ("best_arena", "best_score", "best_budget", "n_nodes",

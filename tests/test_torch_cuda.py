@@ -1101,3 +1101,179 @@ def test_ar1_train_cov_backward_small_lengthscales(dev, kern, ls):
         ref = torch.autograd.grad(Kl, ref, Ctt[l].cpu().double())
         for a, b in zip(got, ref):
             assert float((a[l].cpu().double() - b).norm() / b.norm()) <= 1e-5
+
+
+def _c5_problem(dev, case, kern):
+    """float32 (Linv, Kinv, alpha, X, fid, v, ls, rho, noises) on the card
+    at ROADMAP C5's inputs (the CPU test's, tests/test_torch_fit.py::
+    kinv_problem): ("box", ls), 300 points uniform over the simulator's
+    10 x 20 x 10 m box; ("close", 0.002), 60 points near (15, 15, 15),
+    spread 0.003. The factors come from the float64 Gram, then rounded."""
+    g = np.random.default_rng(1)
+    name, ls = case
+    X = (g.uniform(0, 1, (300, 3)) * [10, 20, 10] if name == "box"
+         else 15 + g.normal(0, 0.003, (60, 3)))
+    N = X.shape[0]
+    fid = g.integers(0, 3, N)
+    X, fid, v, lsv, rho, nz = _t(
+        dev, X, fid, np.array([1.3, 0.8, 2.1]), np.full((3, 3), ls),
+        np.array([0.9, 1.1]), np.array([0.05, 0.03, 0.02]),
+        dtype=torch.float64)
+    K = ck.ar1_cov_fused_plain(X, fid, X, fid, v, lsv, rho, nz[fid] + 1e-6,
+                               kern)
+    Linv = torch.linalg.inv(torch.linalg.cholesky(K)).contiguous()
+    Kinv = Linv.T @ Linv
+    alpha = Kinv @ torch.as_tensor(np.sin(X.cpu().numpy()).sum(1)
+                                   + 0.1 * g.normal(size=N), device=dev)
+    return [a.float() if a.is_floating_point() else a
+            for a in (Linv, Kinv, alpha, X, fid, v, lsv, rho, nz)]
+
+
+C5_CASES = [("box", 1.0), ("box", 0.3), ("close", 0.002)]
+
+
+def _worst_component(got, ref) -> float:
+    return max(float(((g.double() - h).abs() / h.abs()).max())
+               for g, h in zip(got, ref))
+
+
+@pytest.mark.parametrize("kern", KERNELS)
+@pytest.mark.parametrize("case", C5_CASES)
+def test_grad_from_kinv_float32_on_card(dev, kern, case):
+    """ROADMAP C5 on the card: the float32 analytic gradient of the
+    restart fits within 2e-3 per component of its float64 evaluation on
+    the same K^-1 and alpha."""
+    _, Kinv, *rest = _c5_problem(dev, case, kern)
+    got = ck.grad_from_kinv(Kinv, *rest, kern)
+    assert _worst_component(got, ck.grad_from_kinv(*_f64(Kinv, *rest),
+                                                   kern)) <= 2e-3
+
+
+@pytest.mark.parametrize("kern", KERNELS)
+@pytest.mark.parametrize("case", C5_CASES)
+def test_syrk_grad_fused_c5_inputs(dev, kern, case):
+    """B2 at ROADMAP C5's inputs: within 2e-3 per component of the float64
+    evaluation on K^-1 = Linv^T Linv of the same float32 Linv."""
+    Linv, _, *rest = _c5_problem(dev, case, kern)
+    got = ck.syrk_grad_fused(Linv, *rest, kern)
+    L64, *r64 = _f64(Linv, *rest)
+    assert _worst_component(got, ck.grad_from_kinv(L64.T @ L64, *r64,
+                                                   kern)) <= 2e-3
+
+
+def _served_mfgp(dev, n=(60, 40, 30), seed=0):
+    """A float32 MFGP on the card over the simulator's 10 x 20 x 10 m
+    box."""
+    g = np.random.default_rng(seed)
+    Xl = [(g.uniform(0, 1, (k, 3)) * [10, 20, 10]).astype(np.float32)
+          for k in n]
+    yl = [(np.sin(x[:, 0]) + 0.1 * g.standard_normal(x.shape[0])).astype(
+        np.float32) for x in Xl]
+    return tm.MFGP.from_fidelity_lists(Xl, yl, jitter=1e-6, device=dev)
+
+
+def test_served_checkpoint_is_float32_and_launches_b1(dev, tmp_path):
+    """A checkpoint served on the card restores in float32 (the kernels'
+    dtype) whatever it was saved in, and every /predict launches B1; the
+    served answers equal the model's own predict."""
+    from mfgp_tpu_torch import serve
+    from mfgp_tpu_torch.utils import checkpoint as ckpt
+
+    m = _served_mfgp(dev)
+    m64 = tm.MFGP(m.X.double(), m.fid, m.y.double(), n_fidelities=3,
+                  jitter=1e-6)
+    ckpt.save_checkpoint(str(tmp_path / "m"), ckpt.ExplorationCheckpoint(
+        plan_num=0, t_now=0.0, planned_budget=0.0, x0=np.zeros((2, 1)),
+        model=ckpt.capture_model(m64), data_rows=np.zeros((0, 9)),
+        rng_state=np.random.default_rng(0).bit_generator.state))
+    srv = serve.ModelServer.from_checkpoint(str(tmp_path / "m"))
+    try:
+        assert srv.model.X.dtype == torch.float32 and srv.model.X.is_cuda
+        pts = np.random.default_rng(1).uniform(0, 10, (300, 3))
+        n0 = ck.LAUNCHES["ar1_cov_fused"]
+        out = srv.handle("/predict", {"points": pts.tolist()})
+        assert ck.LAUNCHES["ar1_cov_fused"] > n0
+        mu, var = srv.model.predict(pts)
+        np.testing.assert_allclose(out["mean"], mu.cpu().numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(out["var"], var.cpu().numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    finally:
+        srv.close()
+
+
+def test_plan_capture_under_predict_load(dev):
+    """The planner service's first plan captures its iteration while four
+    clients hammer /predict on the same model over HTTP: every request
+    answers, with the unloaded values, and the captured planner plans
+    what a service built without load plans (the device lock keeps other
+    threads' CUDA calls out of the capture)."""
+    import http.client
+    import json
+    import threading
+    import time
+
+    from mfgp_tpu_torch import serve
+
+    ms = serve.ModelServer(_served_mfgp(dev))
+    srv = serve.make_http_server(ms, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    q = np.random.default_rng(2).uniform(0, 10, (200, 3))
+    mu_q, var_q = ms._predict_device(q)
+    stop, answers = threading.Event(), []
+
+    def hammer():
+        while not stop.is_set():
+            conn = http.client.HTTPConnection(*srv.server_address,
+                                              timeout=60)
+            try:
+                conn.request("POST", "/predict",
+                             json.dumps({"points": q.tolist()}))
+                r = conn.getresponse()
+                answers.append((time.perf_counter(), r.status,
+                                json.loads(r.read())))
+            finally:
+                conn.close()
+
+    hammers = [threading.Thread(target=hammer, daemon=True)
+               for _ in range(4)]
+    svc = quiet = None
+    try:
+        for t in hammers:
+            t.start()
+        t_end = time.monotonic() + 60
+        while len(answers) < 4 and time.monotonic() < t_end:
+            time.sleep(0.005)
+        t0 = time.perf_counter()
+        svc = serve.PlannerService(ms, cost="mf_gain", plan_iters=12,
+                                   warm=True)
+        t1 = time.perf_counter()
+        stop.set()
+        for t in hammers:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        assert svc.planner.stats["replays"] > 0  # captured and replayed
+        assert any(t0 < a[0] < t1 for a in answers)
+        for _, status, body in answers:
+            assert status == 200, body
+            np.testing.assert_allclose(body["mean"], mu_q, rtol=1e-5,
+                                       atol=1e-5)
+            np.testing.assert_allclose(body["var"], var_q, rtol=1e-5,
+                                       atol=1e-5)
+        req = {"start": [3.0, 5.0], "budget": 15.0, "seed": 4}
+        quiet = serve.PlannerService(serve.ModelServer(ms.model),
+                                     cost="mf_gain", plan_iters=12,
+                                     warm=True)
+        assert svc.handle("/plan", req) | {"plan_seconds": 0} == \
+            quiet.handle("/plan", req) | {"plan_seconds": 0}
+    finally:
+        stop.set()
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+        for s in (svc, quiet):
+            if s is not None:
+                s.close()
+        if svc is None:
+            ms.close()

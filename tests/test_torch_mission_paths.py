@@ -154,9 +154,33 @@ def test_cli_campaign(capsys):
     ["mission", "--submit", "http://127.0.0.1:1"],
     ["mission-server"],
     ["campaign", "--plot", "c.png"]])
-def test_cli_unported_raise_naming_a7(argv):
-    with pytest.raises(NotImplementedError, match="A7"):
-        cli.main(["--cpu"] + argv)
+def test_cli_unported_raise_naming_a7(argv, tmp_path, monkeypatch, capsys):
+    """The three commands that raised naming ROADMAP A7 until serving was
+    ported now run: ``mission --submit`` posts its mission (nothing listens
+    on port 1: a connection error, not a NotImplementedError),
+    ``mission-server`` serves missions (``serve.serve_missions``, which
+    blocks, is recorded instead), ``campaign --plot`` draws its figure."""
+    import urllib.error
+
+    from mfgp_tpu_torch import serve
+
+    if argv[0] == "mission":
+        with pytest.raises(urllib.error.URLError):
+            cli.main(["--cpu"] + argv)
+    elif argv[0] == "mission-server":
+        calls = []
+        monkeypatch.setattr(serve, "serve_missions",
+                            lambda **kw: calls.append(kw))
+        cli.main(["--cpu"] + argv + ["--port", "0"])
+        assert calls == [{"host": "127.0.0.1", "port": 0,
+                          "device": torch.device("cpu")}]
+    else:
+        png = str(tmp_path / argv[-1])
+        out = run_cli(capsys, ["campaign", "--variants", "SFGP", "--seeds",
+                               "1", "--plot", png] + TINY)
+        assert out["plot"] == png and out["runs"] == 1
+        with open(png, "rb") as f:
+            assert f.read(4) == b"\x89PNG"
 
 
 # -- the planner's per-lane model context --------------------------------------

@@ -412,6 +412,8 @@ COMMANDS = ["sfgp", "nigp", "mfgp", "pipeline", "trainers", "aggregate",
             "study", "infogain-test", "explore"]
 # driven in tests/test_torch_mission_paths.py
 MISSION_COMMANDS = ["mission", "mission-server", "campaign"]
+# driven in tests/test_torch_serve.py and tests/test_torch_viz.py
+SERVE_COMMANDS = ["serve", "plot"]
 
 
 @pytest.mark.parametrize("cmd", COMMANDS)
@@ -478,9 +480,11 @@ def test_cli_commands(cmd, dataset, short_fits, tmp_path, capsys):
 def test_cli_surface(capsys):
     ap = tcli.build_parser()
     sub = next(a for a in ap._actions if a.dest == "cmd")
-    assert sorted(sub.choices) == sorted(COMMANDS + MISSION_COMMANDS)
+    every = COMMANDS + MISSION_COMMANDS + SERVE_COMMANDS
+    assert sorted(sub.choices) == sorted(every)
     jsub = next(a for a in jcli.build_parser()._actions if a.dest == "cmd")
-    for cmd in COMMANDS + MISSION_COMMANDS:
+    assert sorted(jsub.choices) == sorted(every)
+    for cmd in every:
         flags = lambda p: sorted(o for a in p._actions
                                  for o in a.option_strings or [a.dest])
         assert flags(sub.choices[cmd]) == flags(jsub.choices[cmd]), cmd
