@@ -250,6 +250,41 @@
    ``serve_seconds``, its parts' seconds. ``viz`` is not imported: the
    chip machine's matplotlib is not relied on.
 
+16. Parallel: ``mfgp_tpu_torch.parallel`` and the ``mesh=`` ensembles,
+   one rank per process, every rank on the one card (NCCL does not put two
+   ranks on one GPU, so the ranks that share it talk over gloo, whose
+   collectives take CUDA tensors here: ranks sharing one card measure
+   correctness, not scaling, and no multi-GPU number is taken). First B1
+   at the sharded paths' launch shapes (a 5,286 x 20,000 grid shard, the
+   20,000 x 10,000 K columns at F=3 and kernel columns at F=1) against
+   float64 and timed. (a) NCCL at world size 1 in this process, mesh
+   (1, 1), and (b) gloo with 2 ranks, mesh (1, 2), at the unit's width
+   (N=20,000, M=10,571, F=3, float32, rbf): every ``make_sharded_*``
+   function (the MF and GP grid posteriors, the cross-covariance, the WMSE
+   of a 2,000-point posterior covariance, the column-sharded NLML
+   gradient), the fully sharded NLML with 250-wide panels in the block and
+   the cyclic layout, the sharded Cholesky of the 20,000 x 20,000 Gram and
+   both tri-solves of 2,000 columns, each timed with its B1 launches and
+   collectives. Held to: the NLML values within 1e-4 of the one-device
+   value and 1e-3 of float64; the cross-covariance within 1e-5 of its
+   largest entry of one device; the posterior means and variances and the
+   WMSE no further from float64 (beyond 1e-5 of the largest entry), the
+   factor's backward error and the solves' residuals no larger, than twice
+   the one-device float32 result's; B1 launched in every call that assembles a
+   covariance; the gradients' contraction within 2e-3 per component of
+   float64 at C5's inputs (the unit's box at two lengthscales, the close
+   points); every function in float64 at N=4,000 within 1e-10 of one
+   device; no rank importing jax. (c) gloo with 4 ranks, mesh (2, 2):
+   ``fit_sharded`` of the planner phase's study-size MFGP (8 restarts, 200
+   steps; finite losses, the best no higher than its start, grid variances
+   > 0), then ``plan_ensemble`` of 8 mf_gain lanes at the simulator's
+   settings and ``run_ensemble`` of 8 members of the command line's default
+   mission, each against the one-device ensemble on the card (every lane's
+   plan state bit for bit; members' replans and masks equal, RMSE within
+   1e-6). Prints seconds per function, B1 launches per call, collectives
+   and their bytes, what gloo staged through the host, peak memory per
+   rank and the card's name and power limit.
+
 Every phase prints one JSON line (the fit phase one per part). A failed
 build or launch raises; a failed check is reported and the script exits 1
 after the last phase. The last line, on success only, is
@@ -257,9 +292,9 @@ after the last phase. The last line, on success only, is
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore,device_planner,mission,serve
+    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore,device_planner,mission,serve,parallel
 
-runs the build and only the named phases of 7 to 15 (while working on
+runs the build and only the named phases of 7 to 16 (while working on
 them; ``study_batched`` runs ``study`` first, whose dataset it is held
 to); it prints no result line.
 
@@ -1491,23 +1526,9 @@ def c5_checks(torch, ck, dev) -> dict:
     out = {}
     for kern in BASES:
         for name, ls in C5_CASES:
-            g = np.random.default_rng(1)
-            X = (g.uniform(0, 1, (300, 3)) * [10, 20, 10] if name == "box"
-                 else 15 + g.normal(0, 0.003, (60, 3)))
-            N = X.shape[0]
-            f64 = dict(dtype=torch.float64, device=dev)
-            fid = torch.as_tensor(g.integers(0, 3, N), device=dev)
-            X, v, lsv, rho, nz = (torch.as_tensor(a, **f64) for a in (
-                X, [1.3, 0.8, 2.1], np.full((3, 3), ls), [0.9, 1.1],
-                [0.05, 0.03, 0.02]))
-            K = ck.ar1_cov_fused_plain(X, fid, X, fid, v, lsv, rho,
-                                       nz[fid] + 1e-6, kern)
-            Linv = torch.linalg.inv(torch.linalg.cholesky(K)).float()
-            Linv = Linv.contiguous()
+            X, fid, v, lsv, rho, nz, Linv, alpha = c5_problem(
+                torch, ck, dev, name, ls, kern)
             L64 = Linv.double()
-            alpha = (L64.T @ L64) @ torch.as_tensor(
-                np.sin(X.cpu().numpy()).sum(1) + 0.1 * g.normal(size=N),
-                **f64)
             r32 = [a.float() for a in (alpha, X)] + [fid] + [
                 a.float() for a in (v, lsv, rho, nz)]
             r64 = [a.double() if a.is_floating_point() else a for a in r32]
@@ -5098,12 +5119,766 @@ def serve_phase(torch, ck, cov, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16. parallel
+# ---------------------------------------------------------------------------
+# the unit's panel width: 20,000 / (2 x 256) is not whole, and padding
+# changes the log-determinant (the JAX package refuses it); 250 serves mp 1,
+# 2 and 4
+PAR_BLOCK = 250
+PAR_F64_N, PAR_F64_M = 4000, 1000  # the float64 check: N and grid rows
+PAR_WMSE_M = 2000  # the study's full posterior covariance
+PAR_TRI_COLS = 2000  # right-hand-side columns of the N=20,000 tri-solves
+PAR_FIT_RESTARTS, PAR_FIT_STEPS = 8, 200
+PAR_LANES = 8  # plan_ensemble lanes and run_ensemble members
+# the sharded gradient's contraction at ROADMAP C5's inputs: 300 points on
+# the unit's 60 x 110 x 4.5 m box at the unit's lengthscales and at 0.3 of
+# them, and C5's 60 close points at 0.002
+PAR_C5_CASES = (("unit box", (12.0, 20.0, 1.5)),
+                ("unit box", (3.6, 6.0, 0.45)),
+                ("close", (0.002, 0.002, 0.002)))
+PAR_VALUE_REL, PAR_VALUE_F64_REL = 1e-4, 1e-3  # PERF.md §2's NLML bars
+PAR_MEAN_REL = 1e-5  # of the largest entry: the cross-covariance's bar
+PAR_F64_REL = 1e-10  # float64, every function against one device
+# float32 outputs of a different order of operations (the posteriors, whose
+# sums over a 5,286-row shard round otherwise than over the whole grid's
+# 10,571 rows, the WMSE, the factor and the solves): no further from
+# float64 (beyond PAR_MEAN_REL of the largest entry), or no larger a
+# residual, than the one-device float32 result times this
+PAR_F32_RATIO = 2.0
+PAR_RTOL_MEMBERS = 1e-6  # run_ensemble member RMSE vs one device
+PAR_RANK_DEVICE = ("cuda", 0)  # every rank's device: the one card
+
+
+def c5_problem(torch, ck, dev, case: str, ls, kern: str = "rbf"):
+    """ROADMAP C5's inputs (seed 1): points, labels, the parameters in
+    float64, the float32 inverse factor of their float64 Gram and alpha
+    (float64, from K^-1 = Linv^T Linv of that float32 factor), base
+    ``kern``. ``case``:
+    "box" (300 points on 10 x 20 x 10 m), "unit box" (300 on the unit's 60
+    x 110 x 4.5 m) or "close" (60 points near 15, spread 0.003)."""
+    g = np.random.default_rng(1)
+    X = (g.uniform(0, 1, (300, 3)) * [10, 20, 10] if case == "box"
+         else g.uniform(0, 1, (300, 3)) * [60.0, 110.0, 4.5]
+         if case == "unit box" else 15 + g.normal(0, 0.003, (60, 3)))
+    N = X.shape[0]
+    f64 = dict(dtype=torch.float64, device=dev)
+    fid = torch.as_tensor(g.integers(0, 3, N), device=dev)
+    X, v, lsv, rho, nz = (torch.as_tensor(a, **f64) for a in (
+        X, [1.3, 0.8, 2.1], np.broadcast_to(np.asarray(ls, float), (3, 3)),
+        [0.9, 1.1], [0.05, 0.03, 0.02]))
+    K = ck.ar1_cov_fused_plain(X, fid, X, fid, v, lsv, rho, nz[fid] + 1e-6,
+                               kern)
+    Linv = torch.linalg.inv(torch.linalg.cholesky(K)).float().contiguous()
+    L64 = Linv.double()
+    alpha = (L64.T @ L64) @ torch.as_tensor(
+        np.sin(X.cpu().numpy()).sum(1) + 0.1 * g.normal(size=N), **f64)
+    return X, fid, v, lsv, rho, nz, Linv, alpha
+
+
+def par_c5(torch, ck, dev, mesh) -> dict:
+    """Both sharded gradients' contraction (``parallel.sharded.
+    _sharded_grad``) in float32 on this rank's K^-1 columns at
+    ``PAR_C5_CASES``, against ``grad_from_kinv`` in float64 on the same
+    float32 values: worst relative error per component."""
+    from mfgp_tpu_torch.models.mfgp import MFGPParams
+    from mfgp_tpu_torch.parallel.mesh import MP_AXIS, axis_size
+    from mfgp_tpu_torch.parallel.sharded import _sharded_grad
+
+    out = {}
+    for case, ls in PAR_C5_CASES:
+        X, fid, v, lsv, rho, nz, Linv, alpha = c5_problem(torch, ck, dev,
+                                                          case, ls)
+        L64 = Linv.double()
+        Kinv = L64.T @ L64
+        r32 = [a.float() for a in (alpha, X, v, lsv, rho, nz)]
+        r64 = [a.double() for a in r32]
+        ref = ck.grad_from_kinv(Kinv, r64[0], r64[1], fid, *r64[2:], "rbf")
+        nc = X.shape[0] // axis_size(mesh, MP_AXIS)
+        c0 = mesh.get_local_rank(MP_AXIS) * nc
+        cols = torch.arange(c0, c0 + nc, device=dev)
+        p = MFGPParams(torch.log(r32[2]), torch.log(r32[3]), r32[4],
+                       torch.log(r32[5]))
+        g = _sharded_grad(mesh, Kinv.float()[:, cols].contiguous(), r32[0],
+                          r32[1], fid, cols, p)
+        got = (g.log_variances, g.log_lengthscales, g.log_noises)
+        out[f"{case} ls={ls[0]}"] = [
+            float(((a.double() - b).abs() / b.abs()).max())
+            for a, b in zip(got, ref)]
+    return out
+
+
+def par_rel(a, b) -> float:
+    """max |a - b| / max |b| (normwise relative)."""
+    return max_err(a, b) / max(float(b.abs().max()), 1e-300)
+
+
+def par_residual(torch, A, X, B, transpose: bool = False,
+                 step: int = 2048) -> float:
+    """max |A X - B| / (max |A| max |X| n) in float64, ``step`` rows at a
+    time (``A^T X - B`` with ``transpose``): the backward error of a
+    factor (X = A^T, B the matrix) or of a solve."""
+    At = A.T if transpose else A
+    Xd = X.double()
+    err = 0.0
+    for r0 in range(0, At.shape[0], step):
+        r = At[r0:r0 + step].double() @ Xd - B[r0:r0 + step].double()
+        err = max(err, float(r.abs().max()))
+        del r
+    del Xd
+    return err / (float(A.abs().max()) * float(X.abs().max()) * A.shape[0])
+
+
+def par_f64_refs(torch, mf, gp, problem) -> dict:
+    """Float64 on the card (the plain path) of what the float32 checks
+    hold against: the NLML, the MF and GP posteriors on the grid and the
+    WMSE, on float64 copies of the unit's inputs."""
+    from mfgp_tpu_torch.ops import linalg as la
+
+    X, y, grid = (t.double() for t in (problem[0], problem[2], problem[3]))
+    fid, gfid = problem[1], problem[4]
+    p = mf.MFGPParams(*(t.double() for t in problem[5]))
+    v, g = mf.nlml_value_and_grad(p, X, fid, y, jitter=1e-6)
+    st = mf.condition(p, X, fid, y, jitter=1e-6)
+    mu, var = mf.predict(p, st, grid, gfid)
+    _, Sig = mf.predict(p, st, grid[:PAR_WMSE_M], gfid[:PAR_WMSE_M],
+                        full_cov=True)
+    err = par_wmse_err(torch, X.device, torch.float64)
+    w = la.weighted_mse(err, Sig)
+    gpp = par_gp_params(torch, gp, X.device, torch.float64)
+    gst = gp.condition(gpp, X, y, jitter=1e-6)
+    gmu, gvar = gp.predict(gpp, gst, grid)
+    del st, Sig, gst
+    return {"nlml": float(v), "grad": [a.cpu() for a in g],
+            "mu": mu.cpu(), "var": var.cpu(), "gp_mu": gmu.cpu(),
+            "gp_var": gvar.cpu(), "wmse": float(w)}
+
+
+def par_gp_params(torch, gp, dev, dtype):
+    """The GP of the parallel checks: the unit's fidelity-0 variance and
+    lengthscales, noise 0.1 (bench._theta)."""
+    from bench import _theta
+
+    v, ls, _, _ = _theta()
+    return gp.gp_params_from_numpy(np.log(v[0]), np.log(ls[0]), np.log(0.1),
+                                   dev, dtype)
+
+
+def par_wmse_err(torch, dev, dtype):
+    """The WMSE's error vector (seeded, PAR_WMSE_M long)."""
+    return torch.as_tensor(np.random.default_rng(7).normal(size=PAR_WMSE_M),
+                           dtype=dtype, device=dev)
+
+
+def par_run(torch, ck, pm, out: dict, name: str, fn):
+    """``fn()`` timed (synchronised wall), with its kernel launches and its
+    collectives (count and bytes) recorded under ``name``."""
+    c0, l0 = dict(pm.COLLECTIVES), dict(ck.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    out["seconds"][name] = time.perf_counter() - t0
+    out["launches"][name] = {k: ck.LAUNCHES[k] - l0[k] for k in l0}
+    out["collectives"][name] = {k: pm.COLLECTIVES[k] - c0[k] for k in c0
+                                if pm.COLLECTIVES[k] != c0[k]}
+    return r
+
+
+def par_unit(torch, ck, mesh, problem, f64, lead: bool) -> dict:
+    """Every ``make_sharded_*`` function and the fully sharded NLML (both
+    layouts) on ``mesh`` at the unit's width (float32), each timed with its
+    B1 launches and collectives; on the ``lead`` rank the one-device
+    functions on the same inputs and the errors against them and float64
+    (``f64``)."""
+    from mfgp_tpu_torch import parallel as par
+    from mfgp_tpu_torch.models import gp, mfgp as mf
+    from mfgp_tpu_torch.ops import covariance as cov
+    from mfgp_tpu_torch.ops import linalg as la
+    from mfgp_tpu_torch.parallel import mesh as pm
+
+    X, fid, y, grid, gfid, p = problem
+    N, dev = X.shape[0], X.device
+    f64 = {k: [t.to(dev) for t in v] if isinstance(v, list)
+           else v.to(dev) if isinstance(v, torch.Tensor) else v
+           for k, v in f64.items()}
+    out = {"seconds": {}, "launches": {}, "collectives": {}}
+
+    def run(name, fn):
+        return par_run(torch, ck, pm, out, name, fn)
+
+    st = mf.condition(p, X, fid, y, jitter=1e-6)
+    mu, var = run("mfgp_predict", lambda: par.make_sharded_mfgp_predict(
+        mesh)(p, st, grid, gfid))
+    gpp = par_gp_params(torch, gp, dev, torch.float32)
+    gst = gp.condition(gpp, X, y, jitter=1e-6)
+    gmu, gvar = run("gp_predict", lambda: par.make_sharded_gp_predict(mesh)(
+        gpp, gst, grid))
+    Kx = run("cross_cov", lambda: par.make_sharded_ar1_cross_cov(mesh)(
+        grid, gfid, X, fid, p))
+    vg = {"nlml": run("nlml", lambda: par.make_sharded_nlml_value_and_grad(
+        mesh, jitter=1e-6)(p, X, fid, y))}
+    for layout in ("block", "cyclic"):
+        vg[f"fully_{layout}"] = run(
+            f"fully_{layout}",
+            lambda: par.make_fully_sharded_nlml_value_and_grad(
+                mesh, N, block=PAR_BLOCK, jitter=1e-6, layout=layout)(
+                    p, X, fid, y))
+    _, Sig = mf.predict(p, st, grid[:PAR_WMSE_M], gfid[:PAR_WMSE_M],
+                        full_cov=True)
+    err = par_wmse_err(torch, dev, torch.float32)
+    w = run("wmse", lambda: par.make_sharded_weighted_mse(mesh)(err, Sig))
+    K = cov.mf_train_cov(p.variances, p.lengthscales, p.rhos, p.noises, X,
+                         fid, 1e-6, "rbf")
+    Ls = run("cholesky", lambda: par.make_sharded_cholesky(
+        mesh, N, block=PAR_BLOCK)(K))
+    L1 = la.chol(K)
+    B = torch.as_tensor(np.random.default_rng(8).normal(
+        size=(N, PAR_TRI_COLS)), dtype=torch.float32, device=dev)
+    lower, upper = par.make_sharded_tri_solves(mesh, N, PAR_TRI_COLS,
+                                               block=PAR_BLOCK)
+    X1 = run("tri_lower", lambda: lower(L1, B))
+    X2 = run("tri_upper", lambda: upper(L1, X1))
+    if not lead:
+        return out
+    e = {}
+    mu1, var1 = mf.predict(p, st, grid, gfid)
+    gmu1, gvar1 = gp.predict(gpp, gst, grid)
+    for name, got, one, ref in (
+            ("mfgp_predict", (mu, var), (mu1, var1), ("mu", "var")),
+            ("gp_predict", (gmu, gvar), (gmu1, gvar1), ("gp_mu", "gp_var"))):
+        e[name] = {}
+        for part, a, b, r in zip(("mean", "var"), got, one, ref):
+            e[name].update({
+                f"{part}_rel": par_rel(a, b),
+                f"{part}_f64": max_err(a, f64[r]),
+                f"{part}_f64_one": max_err(b, f64[r]),
+                f"{part}_f64_top": float(f64[r].abs().max())})
+    del mu1, var1, gmu1, gvar1
+    e["cross_cov"] = {"rel": par_rel(Kx, cov.mf_cross_cov(
+        p.variances, p.lengthscales, p.rhos, grid, gfid, X, fid, "rbf"))}
+    del Kx
+    v1, g1 = mf.nlml_value_and_grad(p, X, fid, y, jitter=1e-6)
+    for name, (v, g) in vg.items():
+        e[name] = {
+            "value": float(v), "value_one": float(v1),
+            "value_rel": abs(float(v) - float(v1)) / abs(float(v1)),
+            "value_f64_rel": abs(float(v) - f64["nlml"]) / abs(f64["nlml"]),
+            "grad_rel_one": [float(((a - b).abs() / b.abs()).max())
+                             for a, b in zip(g, g1) if b.abs().max() > 0],
+            "grad_rel_f64": [float(((a.double() - b).abs() / b.abs()).max())
+                             for a, b in zip(g, f64["grad"])
+                             if b.abs().max() > 0]}
+    e["nlml_one"] = {"value_f64_rel": abs(float(v1) - f64["nlml"])
+                     / abs(f64["nlml"]),
+                     "grad_rel_f64": [float(((a.double() - b).abs()
+                                             / b.abs()).max())
+                                      for a, b in zip(g1, f64["grad"])
+                                      if b.abs().max() > 0]}
+    w1 = float(la.weighted_mse(err, Sig))
+    e["wmse"] = {"value": float(w), "value_one": w1,
+                 "f64_rel": abs(float(w) - f64["wmse"]) / f64["wmse"],
+                 "f64_rel_one": abs(w1 - f64["wmse"]) / f64["wmse"]}
+    e["cholesky"] = {"rel_one": par_rel(Ls, L1),
+                     "backward": par_residual(torch, Ls, Ls.T, K),
+                     "backward_one": par_residual(torch, L1, L1.T, K)}
+    del Ls, K
+    Y1 = torch.linalg.solve_triangular(L1, B, upper=False)
+    Y2 = torch.linalg.solve_triangular(L1.T, X1, upper=True)
+    e["tri_lower"] = {"rel_one": par_rel(X1, Y1),
+                      "residual": par_residual(torch, L1, X1, B),
+                      "residual_one": par_residual(torch, L1, Y1, B)}
+    e["tri_upper"] = {"rel_one": par_rel(X2, Y2),
+                      "residual": par_residual(torch, L1, X2, X1, True),
+                      "residual_one": par_residual(torch, L1, Y2, X1, True)}
+    out["errors"] = e
+    return out
+
+
+def par_f64(torch, ck, mesh, dev, lead: bool) -> dict:
+    """Every sharded function in float64 at N=PAR_F64_N on the card (the
+    plain path), against the one-device functions on the lead rank:
+    normwise relative errors."""
+    from bench import _theta, build_problem
+    from mfgp_tpu_torch import parallel as par
+    from mfgp_tpu_torch.models import gp, mfgp as mf
+    from mfgp_tpu_torch.ops import covariance as cov
+    from mfgp_tpu_torch.ops import linalg as la
+
+    Xn, fn_, yn, gn, gfn = build_problem(PAR_F64_N, PAR_F64_M)
+    f64 = dict(dtype=torch.float64, device=dev)
+    X, y, grid = (torch.as_tensor(a, **f64) for a in (Xn, yn, gn))
+    fid, gfid = (torch.as_tensor(a, dtype=torch.long, device=dev)
+                 for a in (fn_, gfn))
+    v, ls, r, nz = _theta()
+    p = mf.params_from_numpy(np.log(v), np.log(ls), r, np.log(nz), dev,
+                             torch.float64)
+    N, M = PAR_F64_N, PAR_F64_M
+    st = mf.condition(p, X, fid, y, jitter=1e-6)
+    gpp = par_gp_params(torch, gp, dev, torch.float64)
+    gst = gp.condition(gpp, X, y, jitter=1e-6)
+    _, Sig = mf.predict(p, st, grid, gfid, full_cov=True)
+    err = torch.as_tensor(np.random.default_rng(7).normal(size=M), **f64)
+    K = cov.mf_train_cov(p.variances, p.lengthscales, p.rhos, p.noises, X,
+                         fid, 1e-6, "rbf")
+    L1 = la.chol(K)
+    B = torch.as_tensor(np.random.default_rng(8).normal(size=(N, M)), **f64)
+    lower, upper = par.make_sharded_tri_solves(mesh, N, M, block=PAR_BLOCK)
+    Y1 = lower(L1, B)
+    got = {
+        "mfgp_predict": par.make_sharded_mfgp_predict(mesh)(p, st, grid,
+                                                            gfid),
+        "gp_predict": par.make_sharded_gp_predict(mesh)(gpp, gst, grid),
+        "cross_cov": par.make_sharded_ar1_cross_cov(mesh)(grid, gfid, X,
+                                                          fid, p),
+        "wmse": par.make_sharded_weighted_mse(mesh)(err, Sig),
+        "nlml": par.make_sharded_nlml_value_and_grad(mesh, jitter=1e-6)(
+            p, X, fid, y),
+        **{f"fully_{lay}": par.make_fully_sharded_nlml_value_and_grad(
+            mesh, N, block=PAR_BLOCK, jitter=1e-6, layout=lay)(
+                p, X, fid, y) for lay in ("block", "cyclic")},
+        **{f"cholesky_{lay}": par.make_sharded_cholesky(
+            mesh, N, block=PAR_BLOCK, layout=lay)(K)
+           for lay in ("block", "cyclic")},
+        "tri_lower": Y1, "tri_upper": upper(L1, Y1)}
+    if not lead:
+        return {}
+    vg1 = mf.nlml_value_and_grad(p, X, fid, y, jitter=1e-6)
+    one = {
+        "mfgp_predict": mf.predict(p, st, grid, gfid),
+        "gp_predict": gp.predict(gpp, gst, grid),
+        "cross_cov": cov.mf_cross_cov(p.variances, p.lengthscales, p.rhos,
+                                      grid, gfid, X, fid, "rbf"),
+        "wmse": la.weighted_mse(err, Sig), "nlml": vg1,
+        "fully_block": vg1, "fully_cyclic": vg1,
+        "cholesky_block": L1, "cholesky_cyclic": L1,
+        "tri_lower": torch.linalg.solve_triangular(L1, B, upper=False),
+        "tri_upper": torch.linalg.solve_triangular(L1.T, Y1, upper=True)}
+
+    def flat(o):
+        if isinstance(o, torch.Tensor):
+            return [o.reshape(-1)]
+        return [t for a in o for t in flat(a) if t.numel()]
+
+    return {k: max(par_rel(a, b) for a, b in zip(flat(got[k]), flat(one[k])))
+            for k in got}
+
+
+def par_ensemble_inputs(torch, dev) -> dict:
+    """The study-size MFGP of the planner phase (N of about 705) for
+    ``fit_sharded``, and the simulator's mf_gain plan: its gain state, EID,
+    grid and start point (all on the CPU, for the ranks to load)."""
+    from mfgp_tpu_torch.planning.rig_device import prepare_mf_gain_state
+
+    setup = planner_setup(torch, dev)
+    mf, gp = setup["models"][torch.float32]
+    cfg = setup["cfg"]
+    n = int(setup["n"])
+    nmax = 1 << max(9, (4 * n - 1).bit_length())  # the simulator's pad
+    return {"X": mf.X.cpu(), "fid": mf.fid.cpu(), "y": mf.y.cpu(),
+            "grid": np.asarray(setup["grid"]),
+            "eid": planner_eid("mf_gain", mf, gp, setup["grid"]).cpu(),
+            "gain": tuple(t.cpu() for t in prepare_mf_gain_state(
+                mf, setup["fid_levels"], nmax)),
+            "x0": np.array([0.05 * (cfg.WS[0][1] - cfg.WS[0][0]),
+                            0.05 * (cfg.WS[1][1] - cfg.WS[1][0])])}
+
+
+def par_plan(torch, inp: dict, dev, mesh=None):
+    """``plan_ensemble`` of PAR_LANES lanes (mf_gain, the simulator's
+    settings, float32, graph replay) with or without ``mesh``: (the
+    winner's info, budget and chain, the winning lane, every lane's host
+    state)."""
+    rig = dp_rig(torch.float32, True, B=DP_B, max_iter=DP_COST_ITERS,
+                 grid=inp["grid"], cost="mf_gain")
+    seen = {}
+    extract = rig._extract
+
+    def keep(st, i):  # every lane's host state, beside the winner
+        seen["st"], seen["i"] = st, i
+        return extract(st, i)
+
+    rig._extract = keep
+    res = rig.plan_ensemble(
+        inp["x0"], seed=PLANNER_SEED, n_plans=PAR_LANES, B=DP_TRANCHE,
+        eid=inp["eid"].to(dev), gp=tuple(t.to(dev) for t in inp["gain"]),
+        mesh=mesh)
+    return (res.info, res.budget, res.chain), seen["i"], seen["st"]
+
+
+def par_members(torch, dev, mesh=None) -> list:
+    """PAR_LANES members of the command line's default mission (float32)
+    with or without ``mesh``: per member (replans, flown mask, flown
+    points, RMSE)."""
+    from mfgp_tpu_torch.sim import mission_device as md
+    from mfgp_tpu_torch.utils.configs import ExperimentConfig
+
+    m = md.DeviceMission(ExperimentConfig(**MISSION_EXP), seed=0, device=dev)
+    return [(r.n_replans, r.flown_mask, r.flown, r.rmse)
+            for r in m.run_ensemble(PAR_LANES, mesh=mesh)]
+
+
+def par_ensembles(torch, dev, mesh, inp: dict) -> dict:
+    """(c) on a (dp=2, mp=2) mesh: ``fit_sharded`` of the study-size MFGP
+    (PAR_FIT_RESTARTS restarts, PAR_FIT_STEPS steps) with its restarts'
+    starting NLML, then the sharded plan ensemble and mission ensemble."""
+    from mfgp_tpu_torch import parallel as par
+    from mfgp_tpu_torch.parallel.train import _nlml_lanes
+
+    X, fid, y = inp["X"].to(dev), inp["fid"].to(dev), inp["y"].to(dev)
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    best, losses, mu, var = par.fit_sharded(
+        mesh, X, fid, y, inp["grid"], n_restarts=PAR_FIT_RESTARTS,
+        steps=PAR_FIT_STEPS, seed=0, device=dev)
+    torch.cuda.synchronize()
+    out["seconds"]["fit_sharded"] = time.perf_counter() - t0
+    with torch.no_grad():
+        start = _nlml_lanes(par.init_restarts(
+            torch.Generator().manual_seed(0), PAR_FIT_RESTARTS, 3,
+            X.shape[1], device=dev), X, fid, y, "rbf", 1e-6)
+    out["fit"] = {"losses": losses.cpu().numpy(),
+                  "start": start.cpu().numpy(),
+                  "mu_finite": bool(torch.isfinite(mu).all()),
+                  "var_min": float(var.min()), "M": int(var.shape[0]),
+                  "best": [t.cpu().numpy() for t in best]}
+    t0 = time.perf_counter()
+    out["plan"] = par_plan(torch, inp, dev, mesh)
+    out["seconds"]["plan_ensemble"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["members"] = par_members(torch, dev, mesh)
+    out["seconds"]["run_ensemble"] = time.perf_counter() - t0
+    return out
+
+
+def par_rank(rank: int, world: int, kind: str, tmp: str) -> None:
+    """One gloo rank of (b) (``kind`` "unit": mesh (1, 2)) or (c)
+    ("ensembles": mesh (2, 2)), every rank on the one card; writes its
+    results to ``tmp``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(*PAR_RANK_DEVICE)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmp, f"store_{kind}"),
+                                     world),
+        rank=rank, world_size=world, timeout=timedelta(seconds=300))
+    try:
+        from mfgp_tpu_torch import parallel as par
+        from mfgp_tpu_torch.models import mfgp as mf
+        from mfgp_tpu_torch.ops import build
+        from mfgp_tpu_torch.ops import cuda_kernels as ck
+        from mfgp_tpu_torch.parallel import mesh as pm
+
+        build.load_library()
+        t0 = time.perf_counter()
+        if kind == "unit":
+            mesh = par.make_mesh(2, mp=2, device=dev)
+            f64 = torch.load(os.path.join(tmp, "f64.pt"))
+            out = par_unit(torch, ck, mesh, make_problem(torch, mf, dev), f64,
+                           rank == 0)
+            out["c5"] = par_c5(torch, ck, dev, mesh)
+            out["f64"] = par_f64(torch, ck, mesh, dev, rank == 0)
+        else:
+            mesh = par.make_mesh(4, mp=2, device=dev)
+            out = par_ensembles(torch, dev, mesh, torch.load(
+                os.path.join(tmp, "ensembles.pt"), weights_only=False))
+        out.update(rank=rank, mesh=tuple(mesh.shape),
+                   coordinate=mesh.get_coordinate(),
+                   backend=dist.get_backend(), seconds_total=(
+                       time.perf_counter() - t0),
+                   all_collectives=dict(pm.COLLECTIVES),
+                   b1_total=ck.LAUNCHES["ar1_cov_fused"],
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   jax_imported="jax" in sys.modules)
+        torch.save(out, os.path.join(tmp, f"{kind}{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def par_spawn(torch, world: int, kind: str, tmp: str):
+    """``world`` gloo ranks of ``par_rank`` on the card (a rank that
+    raises fails here); (every rank's results, wall seconds)."""
+    import torch.multiprocessing as tmp_mp
+
+    t0 = time.perf_counter()
+    tmp_mp.start_processes(par_rank, args=(world, kind, tmp), nprocs=world,
+                           join=True, start_method="spawn")
+    return ([torch.load(os.path.join(tmp, f"{kind}{r}.pt"),
+                        weights_only=False) for r in range(world)],
+            time.perf_counter() - t0)
+
+
+def par_b1_shapes(torch, ck, problem) -> dict:
+    """B1 at the sharded paths' launch shapes (mp=2): a grid shard of the
+    predict and the cross-covariance (5,286 x 20,000, F=3), the fully
+    sharded K columns (20,000 x 10,000, F=3) and the gradient's kernel
+    columns (20,000 x 10,000, F=1): held against float64
+    (``b1_path_check``) and timed (wrapper and kernel alone, plain
+    version, bound)."""
+    X, fid, _, grid, gfid, p = problem
+    N, D = X.shape
+    v, ls, rho = p.variances, p.lengthscales, p.rhos
+    half = (grid.shape[0] + 1) // 2
+    g2, gf2 = grid[:half].contiguous(), gfid[:half].contiguous()
+    Xc, fc = X[:N // 2].contiguous(), fid[:N // 2].contiguous()
+    z = torch.zeros(N, dtype=torch.long, device=X.device)
+    shapes = (("predict_shard", g2, gf2, X, fid, v, ls, rho),
+              ("k_columns", X, fid, Xc, fc, v, ls, rho),
+              ("kernel_columns", X, z, Xc, z[:N // 2], v[:1] * 0 + 1.0,
+               ls[:1], rho[:0]))
+    out = {}
+    for name, A, fa, B, fb, vv, ll, rr in shapes:
+        b1_path_check(torch, ck, f"parallel {name}", A, fa, B, fb, vv, ll,
+                      rr)
+        F = vv.shape[0]
+        n, m = A.shape[0], B.shape[0]
+        prepped = ck._prep_pair(A, fa, B, fb, vv, ll, rr)
+        buf = torch.empty((n, m), dtype=torch.float32, device=A.device)
+
+        def wrapper():
+            if F == 1:
+                return ck.rbf_cov_fused(A, B, vv[0], ll[0])
+            return ck.ar1_cov_fused(A, fa, B, fb, vv, ll, rr)
+
+        def kernel():
+            ck._launch_ar1_cov(*prepped, None, buf, ck._KERN_IDS["rbf"])
+
+        def plain():
+            return ck.ar1_cov_fused_plain(A, fa, B, fb, vv, ll, rr)
+
+        ms = min(cuda_ms(torch, wrapper, reps=10) for _ in range(2))
+        kms = min(cuda_ms(torch, kernel, reps=10) for _ in range(2))
+        pms = cuda_ms(torch, plain, reps=1)
+        nbytes = 4 * n * m + (n + m) * (D * 4 + 8) + 4 * F * (D + 2)
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = n * m * F * (3 * D + 5) / FP32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        out[name] = {"shape": f"({n}, {m}) F={F}", "ms": ms, "kernel_ms": kms,
+                     "plain_ms": pms, "bytes": nbytes, "bound_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "share_of_bound": bound / ms,
+                     "kernel_share_of_bound": bound / kms}
+        del buf, prepped
+    return out
+
+
+def par_unit_checks(label: str, r: dict) -> None:
+    """The float32 checks of ``par_unit``'s errors, and B1 on every path
+    that assembles a covariance."""
+    e = r["errors"]
+    for name in ("nlml", "fully_block", "fully_cyclic"):
+        check(f"parallel {label} {name} value",
+              e[name]["value_rel"] <= PAR_VALUE_REL
+              and e[name]["value_f64_rel"] <= PAR_VALUE_F64_REL,
+              f"{e[name]['value']:.8g} vs one device "
+              f"{e[name]['value_one']:.8g}: {e[name]['value_rel']:.3e} (<= "
+              f"{PAR_VALUE_REL}); vs float64 {e[name]['value_f64_rel']:.3e} "
+              f"(<= {PAR_VALUE_F64_REL})")
+    for name in ("mfgp_predict", "gp_predict"):
+        x = e[name]
+        check(f"parallel {label} {name}", all(
+            x[f"{k}_f64"] <= PAR_F32_RATIO * x[f"{k}_f64_one"]
+            + PAR_MEAN_REL * x[f"{k}_f64_top"] for k in ("mean", "var")),
+            "; ".join(
+                f"{k} {x[f'{k}_rel']:.3e} of max |{k}| from one device, vs "
+                f"float64 {x[f'{k}_f64']:.3e} against the one device's "
+                f"{x[f'{k}_f64_one']:.3e} (<= {PAR_F32_RATIO}x + "
+                f"{PAR_MEAN_REL} x {x[f'{k}_f64_top']:.4g})"
+                for k in ("mean", "var")))
+    check(f"parallel {label} cross_cov", e["cross_cov"]["rel"]
+          <= PAR_MEAN_REL, f"{e['cross_cov']['rel']:.3e} of the largest "
+          f"entry vs one device (<= {PAR_MEAN_REL})")
+    w = e["wmse"]
+    check(f"parallel {label} wmse", w["f64_rel"] <= PAR_F32_RATIO
+          * w["f64_rel_one"] + 1e-6, f"{w['value']:.8g} (one device "
+          f"{w['value_one']:.8g}): vs float64 {w['f64_rel']:.3e} against "
+          f"the one device's {w['f64_rel_one']:.3e}")
+    c = e["cholesky"]
+    check(f"parallel {label} cholesky", c["backward"] <= PAR_F32_RATIO
+          * c["backward_one"], f"backward error {c['backward']:.3e} "
+          f"against cuSOLVER's {c['backward_one']:.3e}; factors "
+          f"{c['rel_one']:.3e} apart")
+    for name in ("tri_lower", "tri_upper"):
+        t = e[name]
+        check(f"parallel {label} {name}", t["residual"] <= PAR_F32_RATIO
+              * t["residual_one"], f"residual {t['residual']:.3e} against "
+              f"the one-device solve's {t['residual_one']:.3e}; "
+              f"{t['rel_one']:.3e} apart")
+    paths = ("mfgp_predict", "gp_predict", "cross_cov", "nlml",
+             "fully_block", "fully_cyclic")
+    b1 = {k: r["launches"][k]["ar1_cov_fused"] for k in paths}
+    check(f"parallel {label} B1 on every sharded path",
+          all(n > 0 for n in b1.values()), f"B1 launches per call: {b1}")
+
+
+def par_rank_checks(label: str, r: dict) -> None:
+    """C5 and float64 checks of one rank's results."""
+    c5 = r["c5"]
+    check(f"parallel {label} C5 contraction", max(max(v) for v in
+                                                  c5.values()) <= C5_BAR,
+          f"worst relative error per component (g_logvar, g_logls, "
+          f"g_lognoise) vs float64: {c5} (<= {C5_BAR})")
+    if r["f64"]:
+        check(f"parallel {label} float64 N={PAR_F64_N}",
+              max(r["f64"].values()) <= PAR_F64_REL,
+              f"normwise vs one device: {r['f64']} (<= {PAR_F64_REL})")
+    check(f"parallel {label} rank {r['rank']} imports no jax",
+          not r["jax_imported"], f"jax in sys.modules: {r['jax_imported']}")
+
+
+def parallel_phase(torch, ck, cov, dev) -> dict:
+    """Phase 16 (see the module docstring). Returns B1's launches over the
+    sharded calls of this process and of every rank."""
+    import torch.distributed as dist
+
+    from mfgp_tpu_torch import parallel as par
+    from mfgp_tpu_torch.models import gp, mfgp as mf
+    from mfgp_tpu_torch.parallel import mesh as pm
+
+    parts, t_phase = {}, time.perf_counter()
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    smi = nvidia_smi()
+    tmp = tempfile.mkdtemp(prefix="mfgp_parallel_")
+    launches = {k: 0 for k in ck.LAUNCHES}
+
+    def count(r):  # the sharded calls' launches of one process
+        for per_call in r["launches"].values():
+            for k, n in per_call.items():
+                launches[k] += n
+
+    try:
+        problem = make_problem(torch, mf, dev)
+        f64 = par_f64_refs(torch, mf, gp, problem)
+        torch.save(f64, os.path.join(tmp, "f64.pt"))
+        torch.cuda.empty_cache()
+        part("f64_refs")
+        b1 = par_b1_shapes(torch, ck, problem)
+        part("b1_shapes")
+
+        # (a) NCCL at world size 1 in this process, mesh (1, 1)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store_nccl"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = par.make_mesh(device=dev)
+            pm.reset_collectives()
+            torch.cuda.reset_peak_memory_stats()
+            a = par_unit(torch, ck, mesh, problem, f64, True)
+            a.update(c5=par_c5(torch, ck, dev, mesh), rank=0,
+                     f64=par_f64(torch, ck, mesh, dev, True),
+                     mesh=tuple(mesh.shape), backend=dist.get_backend(),
+                     all_collectives=dict(pm.COLLECTIVES),
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     jax_imported="jax" in sys.modules)
+        finally:
+            dist.destroy_process_group()
+        count(a)
+        del problem
+        torch.cuda.empty_cache()
+        part("a_nccl")
+        par_unit_checks("(a) nccl (1, 1)", a)
+        par_rank_checks("(a) nccl (1, 1)", a)
+        check("parallel (a) nccl stages nothing",
+              a["all_collectives"]["host_staged"] == 0,
+              f"{a['all_collectives']}")
+
+        # (b) gloo, 2 ranks on the card, mesh (1, 2)
+        b, b_s = par_spawn(torch, 2, "unit", tmp)
+        part("b_gloo2")
+        par_unit_checks("(b) gloo (1, 2)", b[0])
+        for r in b:
+            par_rank_checks("(b) gloo (1, 2)", r)
+            count(r)
+
+        # (c) gloo, 4 ranks, mesh (2, 2): the one-device references first
+        inp = par_ensemble_inputs(torch, dev)
+        torch.save(inp, os.path.join(tmp, "ensembles.pt"))
+        t0 = time.perf_counter()
+        plan1 = par_plan(torch, inp, dev)
+        members1 = par_members(torch, dev)
+        one_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        part("c_one_device")
+        c, c_s = par_spawn(torch, 4, "ensembles", tmp)
+        part("c_gloo4")
+        for r in c:
+            f = r["fit"]
+            bi = int(np.argmin(np.where(np.isfinite(f["losses"]),
+                                        f["losses"], np.inf)))
+            check(f"parallel (c) fit_sharded rank {r['rank']}",
+                  np.isfinite(f["losses"]).all() and f["mu_finite"]
+                  and f["losses"][bi] <= f["start"][bi]
+                  and f["var_min"] > 0,
+                  f"{PAR_FIT_RESTARTS} restarts x {PAR_FIT_STEPS} steps, N="
+                  f"{inp['X'].shape[0]}: losses {np.round(f['losses'], 3)}, "
+                  f"best #{bi} from {f['start'][bi]:.4f}; grid of {f['M']}: "
+                  f"var min {f['var_min']:.4g}")
+            win, i, st = r["plan"]
+            same = i == plan1[1] and win == plan1[0] and all(
+                np.array_equal(st[k], plan1[2][k]) for k in plan1[2])
+            check(f"parallel (c) plan_ensemble rank {r['rank']}", same,
+                  f"{PAR_LANES} lanes over dp=2 = one device lane by lane "
+                  f"bit for bit: {same}; winner lane {i} "
+                  f"(one device {plan1[1]}), info {win[0]:.6g}")
+            ok = len(r["members"]) == PAR_LANES
+            worst = 0.0
+            for (n, mask, fl, rm), (n1, mask1, fl1, rm1) in zip(
+                    r["members"], members1):
+                ok &= n == n1 and np.array_equal(mask, mask1)
+                worst = max(worst, abs(rm - rm1) / abs(rm1))
+            bits = all(np.array_equal(a[2], b_[2])
+                       for a, b_ in zip(r["members"], members1))
+            check(f"parallel (c) run_ensemble rank {r['rank']}",
+                  ok and worst <= PAR_RTOL_MEMBERS,
+                  f"{PAR_LANES} members over dp=2: replans and masks equal "
+                  f"{ok}, flown points bit for bit {bits}, worst RMSE "
+                  f"{worst:.3e} (<= {PAR_RTOL_MEMBERS})")
+            check(f"parallel (c) rank {r['rank']} imports no jax and runs "
+                  "B1", not r["jax_imported"] and r["b1_total"] > 0,
+                  f"jax imported {r['jax_imported']}, B1 launches "
+                  f"{r['b1_total']} (fit, plans, members)")
+            launches["ar1_cov_fused"] += r["b1_total"]
+        check("parallel gloo staged nothing through the host",
+              all(r["all_collectives"]["host_staged"] == 0 for r in b + c),
+              f"gloo's CUDA collectives here: {sorted(pm.GLOO_CUDA_OPS)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    note = ("ranks sharing one card measure correctness, not scaling: no "
+            "multi-GPU number is taken here")
+    emit("parallel_b1", nvidia_smi=smi, shapes=b1)
+    for label, rs in (("a_nccl", [a]), ("b_gloo2", b)):
+        emit("parallel_unit", run=label, nvidia_smi=smi, note=note,
+             ranks=[{k: r.get(k) for k in (
+                 "rank", "mesh", "backend", "seconds", "launches",
+                 "collectives", "all_collectives", "peak_gb", "errors",
+                 "c5", "f64")} for r in rs])
+    emit("parallel_ensembles", nvidia_smi=smi, note=note,
+         one_device_s=one_s, spawn_and_run_s=c_s,
+         ranks=[{k: r.get(k) for k in ("rank", "mesh", "seconds",
+                                       "all_collectives", "b1_total",
+                                       "peak_gb", "seconds_total")}
+                | {"fit_losses": r["fit"]["losses"].tolist()} for r in c])
+    emit("parallel_seconds", b_spawn_and_run_s=b_s, **parts)
+    return launches
+
+
 NEW_PHASES = ("study", "study_f64", "study_batched", "nigp", "recursive",
-              "planner", "explore", "device_planner", "mission", "serve")
+              "planner", "explore", "device_planner", "mission", "serve",
+              "parallel")
 
 
 def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
-    """Phases 7 to 15 in turn (the batched study, 10, after the study's
+    """Phases 7 to 16 in turn (the batched study, 10, after the study's
     phases, whose dataset it compares with); returns each path's launches
     by phase."""
     launches = {}
@@ -5142,11 +5917,14 @@ def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
     torch.cuda.empty_cache()
     if "serve" in only:
         launches["serve"] = serve_phase(torch, ck, cov, dev)
+    torch.cuda.empty_cache()
+    if "parallel" in only:
+        launches["parallel"] = parallel_phase(torch, ck, cov, dev)
     return launches
 
 
 def only_phases(names) -> int:
-    """``--only``: the build and the named phases of 7 to 15; no result
+    """``--only``: the build and the named phases of 7 to 16; no result
     line."""
     import torch
 

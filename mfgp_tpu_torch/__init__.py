@@ -42,6 +42,9 @@ utils.checkpoint  npz checkpoints of a closed-loop run (the JAX package's
                   layout) and model restore
 utils.profiling   ``PhaseTimer``, ``timed`` and ``device_trace`` (a
                   ``torch.profiler`` Chrome trace)
+parallel          multi-device on ``torch.distributed``: the (dp, mp) mesh,
+                  mp-sharded posteriors and gradients, the distributed
+                  Cholesky, dp-sharded restart fits, the sweep
 serve             the model, planner, router and mission services over HTTP
 viz               model replay from artifacts and the headless figures
 native            ctypes binding of the repository's C++ CSV reader/writer

@@ -8,8 +8,8 @@ device (``rig_device``, on ``primitives_device``).
 per plan; it reproduces the JAX package's plans only when given that
 package's ``jax.random`` draws (``plan(draws=...)``). Not carried over:
 ``MFGP_TPU_PLAN_GATHER`` and ``plan(gather=)``, the TPU's A/B between two
-index lowerings (the port has one), and ``plan_ensemble(mesh=)``, the
-ensemble sharded over devices (ROADMAP A6).
+index lowerings (the port has one). ``plan_ensemble(mesh=)`` shards the
+ensemble's lanes over the dp ranks of a ``parallel.make_mesh`` mesh.
 
     python -m pytest tests/test_torch_primitives_device.py \
         tests/test_torch_rig_device.py -q        # CPU parity with JAX

@@ -51,8 +51,7 @@ caller's draws instead, which is how the tests give the port the JAX
 package's own ``jax.random`` draws and hold its plans to JAX's. Not
 ported: ``MFGP_TPU_PLAN_GATHER`` and ``plan(gather=)`` (the TPU's choice
 between two index lowerings; the port has one, gathers and scatters with
-an index tensor and a validity mask) and ``plan_ensemble(mesh=)`` (the
-ensemble sharded over devices, ROADMAP A6).
+an index tensor and a validity mask).
 """
 
 from __future__ import annotations
@@ -1172,17 +1171,35 @@ class DeviceRIG:
                       eid=None, gp=None, draws=None,
                       mesh=None) -> DevicePlanResult:
         """``n_plans`` independent planner instances as lanes of one loop;
-        the best-scoring plan wins (ties break toward lower budget). The
-        lanes run on one device; ``mesh`` (sharding them over several)
-        raises."""
+        the best-scoring plan wins (ties break toward lower budget).
+
+        ``mesh`` (a ``parallel.make_mesh`` mesh; every rank calls this with
+        the same arguments) partitions the lanes over its dp ranks: each
+        rank builds all lanes' draws as the one-device ensemble does and
+        runs its own block of them, so lane i is lane i of the one-device
+        ensemble; the lanes' results are gathered to every rank, which
+        picks the same winner. No other collective."""
+        if mesh is None:
+            lanes = slice(0, n_plans)
+        else:
+            from mfgp_tpu_torch.parallel.mesh import DP_AXIS, axis_size
+
+            dp = axis_size(mesh, DP_AXIS)
+            if n_plans % dp:
+                raise ValueError(f"n_plans={n_plans} must be a multiple of "
+                                 f"the mesh dp extent {dp} (the lanes "
+                                 "shard over dp)")
+            b = n_plans // dp
+            i = mesh.get_local_rank(DP_AXIS)
+            lanes = slice(i * b, (i + 1) * b)
+        draws = self._lane_draws(draws, seed, n_plans)
+        x0r = np.repeat(np.asarray(x0, float).reshape(1, 2), n_plans, 0)
+        x0t, Bt, eidt, gpt = self._args(x0r[lanes], B, eid, gp)
+        st = self._to_host(self._run(x0t, Bt, eidt, gpt, draws[lanes]))
         if mesh is not None:
-            raise NotImplementedError("the plan ensemble sharded over a "
-                                      "device mesh: ROADMAP A6")
-        x0t, Bt, eidt, gpt = self._args(
-            np.repeat(np.asarray(x0, float).reshape(1, 2), n_plans, 0), B,
-            eid, gp)
-        st = self._to_host(self._run(
-            x0t, Bt, eidt, gpt, self._lane_draws(draws, seed, n_plans)))
+            from mfgp_tpu_torch.parallel.mesh import gather_lanes
+
+            st = gather_lanes(mesh, st)
         i = int(np.lexsort((st["best_budget"], -st["best_score"]))[0])
         return self._extract(st, i)
 
@@ -1381,11 +1398,12 @@ class DeviceRIGAdapter:
     (lanes, max_iter, draw_width) instead of the planner's generator."""
 
     def __init__(self, seed: int = 0, n_plans: int = 1, plan_draws=None,
-                 **kw):
+                 mesh=None, **kw):
         self._planner = DeviceRIG(**kw)
         self._seed = seed
         self._n_plans = int(n_plans)
         self._plan_draws = plan_draws
+        self._mesh = mesh
         self._res: Optional[DevicePlanResult] = None
 
     def plan(self, x0, seed: int | None = None, B=None, eid=None,
@@ -1397,7 +1415,7 @@ class DeviceRIGAdapter:
         if self._n_plans > 1:
             self._res = self._planner.plan_ensemble(
                 x0r, seed, n_plans=self._n_plans, B=B, eid=eid, gp=gp,
-                draws=draws)
+                draws=draws, mesh=self._mesh)
         else:
             self._res = self._planner.plan(x0r, seed, B=B, eid=eid, gp=gp,
                                            draws=draws)

@@ -821,6 +821,15 @@ class MissionService:
         self._worker.join(timeout=5)
 
 
+class _FleetServer(ThreadingHTTPServer):
+    """A threading HTTP server whose listen backlog holds a fleet's
+    clients connecting at once: with socketserver's default of 5 the
+    kernel drops the connections beyond it, and their clients retry a
+    second later, after any batching window."""
+
+    request_queue_size = 128
+
+
 def make_http_server(server, host: str = "127.0.0.1",
                      port: int = 0) -> ThreadingHTTPServer:
     """Build (not start) the HTTP server around a ModelServer, a
@@ -866,7 +875,7 @@ def make_http_server(server, host: str = "127.0.0.1",
                 return
             self._answer(payload)
 
-    return ThreadingHTTPServer((host, port), Handler)
+    return _FleetServer((host, port), Handler)
 
 
 def _serve(srv: ThreadingHTTPServer, service) -> None:

@@ -42,9 +42,11 @@ What differs from the JAX package:
   ``plan_draws(seed, lanes)``, which returns the (lanes, plan_iters,
   width) draws of one replan (a test passes the JAX package's own, from
   ``jax.random.key(seed)``; an ensemble's lanes from its ``split``).
-  ``plan_ensemble = K`` runs K planner instances as lanes of one loop on
-  one device; sharding them over several devices (``mesh``) raises
-  ``NotImplementedError`` (ROADMAP A6). Its plans equal the JAX
+  ``plan_ensemble = K`` runs K planner instances as lanes of one loop;
+  where a process group of more than one rank is initialised and K
+  divides by its dp extent, the lanes shard over the ranks
+  (``DeviceRIG.plan_ensemble(mesh=)``), as the JAX package shards them
+  over its devices. Its plans equal the JAX
   package's only under that package's draws: ``python -m pytest
   tests/test_torch_rig_device*.py`` holds them on the CPU, ``python3
   chip_smoke.py --only device_planner`` drives it on the card.
@@ -124,8 +126,7 @@ class ExplorationSim:
                  planner_backend: str = "host", plan_ensemble: int = 1,
                  device=CUDA, dtype: torch.dtype | None = None,
                  kf_noise: Callable[[int, int], np.ndarray] | None = None,
-                 plan_draws: Callable[[int, int], np.ndarray] | None = None,
-                 mesh=None):
+                 plan_draws: Callable[[int, int], np.ndarray] | None = None):
         self.exp = exp or ExperimentConfig()
         self.cfg: SimConfig = self.exp.sim
         self.seed = seed
@@ -167,11 +168,6 @@ class ExplorationSim:
         if self.plan_ensemble > 1 and planner_backend != "device":
             raise ValueError("plan_ensemble requires the device planner "
                              "(--planner device)")
-        if mesh is not None and self.plan_ensemble > 1:
-            raise NotImplementedError(
-                "the plan ensemble sharded over a device mesh is not ported "
-                "yet (ROADMAP A6); without a mesh its lanes run on one "
-                "device")
         self.plan_draws = plan_draws
         self._device_planner = None
         self._gain_nmax = None
@@ -275,6 +271,7 @@ class ExplorationSim:
                 cost = "mf_gain" if exp.multi_fidelity else "sf_gain"
             self._device_planner = DeviceRIGAdapter(
                 n_plans=self.plan_ensemble, plan_draws=self.plan_draws,
+                mesh=self._ensemble_mesh(),
                 cfg=self.agent_cfg, delta=cfg.step_size, B=exp.B,
                 WS=np.asarray(cfg.WS, float), R=cfg.near_rad, Rd=cfg.Rd,
                 same_node_distance=cfg.same_node_distance,
@@ -283,6 +280,25 @@ class ExplorationSim:
                 kernel=exp.kernel, cost=cost, device=self.device,
                 dtype=self.dtype)
         return self._device_planner
+
+    def _ensemble_mesh(self):
+        """The mesh the plan ensemble's lanes shard over: where a process
+        group of more than one rank is initialised and the ensemble divides
+        by its dp extent (``parallel.make_mesh``'s default layout), as the
+        JAX package shards it when it has more than one device; else
+        None (the lanes on this rank's device)."""
+        import torch.distributed as dist
+
+        if (self.plan_ensemble < 2 or not dist.is_available()
+                or not dist.is_initialized() or dist.get_world_size() < 2):
+            return None
+        from mfgp_tpu_torch.parallel.mesh import (DP_AXIS, axis_size,
+                                                  make_mesh)
+
+        mesh = make_mesh(device=self.device)
+        if self.plan_ensemble % axis_size(mesh, DP_AXIS):
+            return None
+        return mesh
 
     def _gain_state(self, model):
         """The model padded to a static train size for the device

@@ -1277,3 +1277,86 @@ def test_plan_capture_under_predict_load(dev):
                 s.close()
         if svc is None:
             ms.close()
+
+
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    """A (1, 1) mesh of ``mfgp_tpu_torch.parallel`` over an NCCL group of
+    world size 1 (the production backend of a multi-GPU node), torn down
+    after the test."""
+    import torch.distributed as dist
+
+    from mfgp_tpu_torch import parallel as par
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield par.make_mesh(device=dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_problem(dev, N=2000, M=301):
+    """N training points on the unit's 60 x 110 x 4.5 m box with the
+    unit's parameters (bench.py's problem and theta, F=3), float32."""
+    g = np.random.default_rng(0)
+    X = g.uniform(0, 1, (N, 3)) * [60.0, 110.0, 4.5]
+    grid = g.uniform(0, 1, (M, 3)) * [60.0, 110.0, 4.5]
+    y = np.sin(X[:, 0] / 7) + np.cos(X[:, 1] / 11) + 0.1 * g.normal(size=N)
+    X, fid, y, grid, gfid = _t(dev, X, g.integers(0, 3, N), y, grid,
+                               np.full(M, 2))
+    p = tm.params_from_numpy(np.log([25.0, 10.0, 5.0]),
+                             np.log(np.tile([12.0, 20.0, 1.5], (3, 1))),
+                             np.ones(2), np.log([0.5, 0.2, 0.1]), dev,
+                             torch.float32)
+    return X, fid, y, grid, gfid, p
+
+
+def test_parallel_nccl_mesh_matches_one_device(nccl_mesh, dev):
+    """On the NCCL (1, 1) mesh the sharded MFGP predict equals the
+    one-device predict, and the fully sharded NLML (both layouts, 250-wide
+    panels) is within 1e-4 of the float64 value on the same float32
+    inputs (the one-device float32 value itself is 2e-4 off there), each
+    launching B1."""
+    from mfgp_tpu_torch import parallel as par
+    from mfgp_tpu_torch.parallel import mesh as pm
+
+    X, fid, y, grid, gfid, p = _parallel_problem(dev)
+    st = tm.condition(p, X, fid, y, jitter=1e-6)
+    b0 = ck.LAUNCHES["ar1_cov_fused"]
+    mu, var = par.make_sharded_mfgp_predict(nccl_mesh)(p, st, grid, gfid)
+    assert ck.LAUNCHES["ar1_cov_fused"] > b0
+    mu1, var1 = tm.predict(p, st, grid, gfid)
+    assert torch.equal(mu, mu1) and torch.equal(var, var1)
+    v64 = float(tm.nlml(tm.MFGPParams(*_f64(*p)), *_f64(X, fid, y),
+                        jitter=1e-6))
+    for layout in ("block", "cyclic"):
+        b0 = ck.LAUNCHES["ar1_cov_fused"]
+        v, g = par.make_fully_sharded_nlml_value_and_grad(
+            nccl_mesh, X.shape[0], block=250, jitter=1e-6, layout=layout)(
+                p, X, fid, y)
+        assert ck.LAUNCHES["ar1_cov_fused"] > b0
+        assert abs(float(v) - v64) <= 1e-4 * abs(v64)
+        assert all(bool(torch.isfinite(a).all()) for a in g)
+    assert pm.COLLECTIVES["host_staged"] == 0
+
+
+@pytest.mark.parametrize("case", [("box", 1.0), ("box", 0.3),
+                                  ("close", 0.002)])
+def test_sharded_grad_c5_inputs(nccl_mesh, dev, case):
+    """The sharded gradients' contraction (the lengthscale term from
+    differences, B1's kernel columns) at ROADMAP C5's inputs in float32:
+    within 2e-3 per component of ``grad_from_kinv`` in float64 on the same
+    K^-1 and alpha."""
+    from mfgp_tpu_torch.parallel.sharded import _sharded_grad
+
+    _, Kinv, alpha, X, fid, v, ls, rho, nz = _c5_problem(dev, case, "rbf")
+    p = tm.MFGPParams(torch.log(v), torch.log(ls), rho, torch.log(nz))
+    cols = torch.arange(X.shape[0], device=dev)
+    b0 = ck.LAUNCHES["ar1_cov_fused"]
+    g = _sharded_grad(nccl_mesh, Kinv.clone(), alpha, X, fid, cols, p)
+    assert ck.LAUNCHES["ar1_cov_fused"] == b0 + 3  # one per fidelity
+    ref = ck.grad_from_kinv(*_f64(Kinv, alpha, X, fid, v, ls, rho, nz),
+                            "rbf")
+    assert _worst_component((g.log_variances, g.log_lengthscales,
+                             g.log_noises), ref) <= 2e-3

@@ -186,10 +186,11 @@ def test_device_planner_and_ensemble_raise():
     """The device planner and the plan ensemble run (on the CPU when asked
     for it): every replan by the device loop (SFGP's sequential gain with
     the gain state padded to a static size; SFEGP with 2 plans as lanes).
-    What still raises: the ensemble sharded over a mesh (ROADMAP A6), an
-    ensemble without the device planner, a stopwatch for a
-    fixed-iteration loop (the JAX package's rules), and the card without
-    CUDA."""
+    What raises: a ``mesh`` argument (the simulator takes none: as the JAX
+    package's, it shards the ensemble over an initialised process group by
+    itself, tests/test_torch_parallel.py), an ensemble without the device
+    planner, a stopwatch for a fixed-iteration loop (the JAX package's
+    rules), and the card without CUDA."""
     for ergodic, ens, cost, nmax in ((False, 1, "sf_gain", 512),
                                      (True, 2, "ergodic", None)):
         sim = TSim(TExp(multi_fidelity=False, ergodic=ergodic, B=10, BD=1),
@@ -202,7 +203,7 @@ def test_device_planner_and_ensemble_raise():
         assert rig._planner.device == torch.device("cpu")
         assert sim._gain_nmax == nmax
         assert res.replans[0].path_points.shape[1] == 4
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(TypeError, match="mesh"):
         TSim(small_exp(), device="cpu", planner_backend="device",
              plan_ensemble=2, mesh=object())
     with pytest.raises(ValueError, match="device planner"):

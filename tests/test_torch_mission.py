@@ -40,6 +40,7 @@ from mfgp_tpu_torch.sim.mission_device import DeviceMission as TM
 from mfgp_tpu_torch.sim.mission_device import run_campaign
 from mfgp_tpu_torch.utils.configs import ExperimentConfig as TE
 from mfgp_tpu_torch.utils.configs import SimConfig as TS
+from test_torch_parallel import MESH_DP2
 from test_torch_primitives_device import jax_plan_draws
 
 SMALL = dict(plan_iters=6, e_max=6, max_nodes=16, samples_per_edge=6)
@@ -275,8 +276,8 @@ def test_ensemble_members_equal_solo_runs():
         np.testing.assert_allclose(e.gp_data.data, solo.gp_data.data,
                                    rtol=1e-10, atol=1e-12)
         assert e.rmse == pytest.approx(solo.rmse, rel=1e-10)
-    with pytest.raises(NotImplementedError, match="A6"):
-        port_mission(kw, 0).run_ensemble(2, mesh=object())
+    with pytest.raises(ValueError, match="multiple of the mesh dp"):
+        port_mission(kw, 0).run_ensemble(3, mesh=MESH_DP2)
 
 
 def test_campaign_equals_solo_missions():
@@ -303,8 +304,9 @@ def test_campaign_equals_solo_missions():
                                        atol=1e-12)
     with pytest.raises(ValueError, match="variant"):
         run_campaign(variants=("XFGP",), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_campaign(variants=("SFGP",), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="multiple of the mesh dp"):
+        run_campaign(variants=("SFGP",), n_seeds=3, mesh=MESH_DP2,
+                     device="cpu")
 
 
 def test_save_artifacts_match_jax(sf_frozen, tmp_path):

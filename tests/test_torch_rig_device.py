@@ -28,6 +28,7 @@ from mfgp_tpu_torch.models.gp import GP as TGP
 from mfgp_tpu_torch.models.mfgp import MFGP as TMFGP
 from mfgp_tpu_torch.planning import rig_device as trd
 from mfgp_tpu_torch.planning.primitives import AgentConfig as TCfg
+from test_torch_parallel import MESH_DP2
 from test_torch_primitives_device import jax_lane_draws
 
 REL = 1e-10
@@ -201,8 +202,8 @@ def test_plan_ensemble_matches_jax(seed):
     solos = [tp.plan(X0, B=12.0, draws=draws[i:i + 1]) for i in range(3)]
     best = max(solos, key=lambda r: (r.info, -r.budget))
     assert (best.info, best.budget) == (got.info, got.budget)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tp.plan_ensemble(X0, n_plans=2, mesh=object())
+    with pytest.raises(ValueError, match="multiple of the mesh dp"):
+        tp.plan_ensemble(X0, n_plans=3, mesh=MESH_DP2)
 
 
 def test_plan_batch_matches_jax():

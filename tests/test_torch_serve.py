@@ -278,6 +278,41 @@ def test_http_round_trip_and_error_codes():
         ms.close()
 
 
+def test_a_fleet_connects_at_once():
+    """32 clients connecting at the same instant are all answered without
+    a retried connection: with socketserver's listen backlog of 5 the
+    kernel drops the connections beyond it, and their clients retry a
+    second later, after any batching window (an 8-client /plan was split
+    into two launches so)."""
+
+    class Health:
+        def handle(self, path, payload):
+            return {"status": "ok"}
+
+    h = Http(Health())
+    n = 32
+    barrier = threading.Barrier(n)
+    seconds = [None] * n
+
+    def client(i):
+        barrier.wait(timeout=JOIN_S)
+        t0 = time.perf_counter()
+        assert h.req("GET", "/health")[0] == 200
+        seconds[i] = time.perf_counter() - t0
+
+    try:
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=JOIN_S)
+            assert not t.is_alive()
+    finally:
+        h.stop()
+    assert None not in seconds and max(seconds) < 0.9, seconds
+
+
 def test_concurrent_predicts_coalesce_into_one_launch():
     """Six concurrent predict calls coalesce into at most two predict
     calls, and every caller gets its slice, equal to a solo call."""
