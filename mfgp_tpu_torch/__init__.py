@@ -40,8 +40,9 @@ sim.explore       ``ExplorationSim``: the closed loop (EID, replan, flight,
                   refit); sim.dynamics: RK4 and toy models
 utils.checkpoint  npz checkpoints of a closed-loop run (the JAX package's
                   layout) and model restore
-utils.profiling   ``PhaseTimer``, ``timed`` and ``device_trace`` (a
-                  ``torch.profiler`` Chrome trace)
+utils.profiling   the span recorder (stage spans, counters, observations;
+                  on under a ``torch.profiler`` or ``enable()``) and
+                  ``device_trace`` (Chrome trace + ``spans.json``)
 parallel          multi-device on ``torch.distributed``: the (dp, mp) mesh,
                   mp-sharded posteriors and gradients, the distributed
                   Cholesky, dp-sharded restart fits, the sweep

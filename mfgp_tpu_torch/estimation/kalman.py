@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mfgp_tpu_torch.utils import profiling
 from mfgp_tpu_torch.utils.device import CUDA, resolve
 
 
@@ -152,6 +153,7 @@ def _run_graphed(step, x, P, inputs, n_steps: int, chunk: int,
     x_buf.copy_(x)
     P_buf.copy_(P)
     graph = torch.cuda.CUDAGraph()
+    profiling.count("graph.captures")
     with torch.cuda.graph(graph):
         out_buf = run_chunk()
     if cache is not None:

@@ -46,6 +46,7 @@ from mfgp_tpu_torch.hw.controllers import saturate
 from mfgp_tpu_torch.hw.controllers import yaw_correction as _yaw_correction
 from mfgp_tpu_torch.hw.plant import GliderPlant, PlantParams
 from mfgp_tpu_torch.planning.primitives import AgentConfig, Leg
+from mfgp_tpu_torch.utils import profiling
 from mfgp_tpu_torch.utils.device import CUDA, resolve
 
 # -- control laws (reference/PhysicalExperimentCode/exploreExpSettings.py) --
@@ -300,6 +301,7 @@ class ObserverStep:
             self._compute(self._in)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        profiling.count("graph.captures")
         with torch.cuda.graph(graph):
             self._out = self._compute(self._in)
         self._cuda_graph = graph

@@ -64,6 +64,7 @@ from mfgp_tpu_torch.hw.plant import PlantParams
 from mfgp_tpu_torch.hw.runtime import RuntimeConfig, derived_tail_weight
 from mfgp_tpu_torch.planning.primitives import AgentConfig, Leg
 from mfgp_tpu_torch.planning.rig_device import _interp
+from mfgp_tpu_torch.utils import profiling
 from mfgp_tpu_torch.utils.device import CUDA, resolve
 
 
@@ -820,6 +821,7 @@ class DeviceRuntime:
         b["flat"].copy_(flat0)
         b["i"].copy_(i0)
         g = torch.cuda.CUDAGraph()
+        profiling.count("graph.captures")
         with torch.cuda.graph(g):
             for _ in range(size):
                 self._window(b, kind)

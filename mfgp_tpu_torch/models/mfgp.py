@@ -41,6 +41,7 @@ from mfgp_tpu_torch.ops import linalg as _la
 from mfgp_tpu_torch.ops.optimize import (autograd_value_and_grad,
                                          batched_lbfgs, penalize_nonfinite,
                                          restart_inits, scipy_lbfgsb)
+from mfgp_tpu_torch.utils import profiling
 from mfgp_tpu_torch.utils.device import CUDA, as_tensor_on, points_like
 
 _LOG2PI = math.log(2.0 * math.pi)
@@ -208,6 +209,11 @@ def _nlml_vg_core(params: MFGPParams, X, fid, y, kernel: str,
     L after K^-1 or Linv is formed, K^-1 after the contractions), and no
     base kernel stays alive for the gradient (the contractions rebuild
     each one): at N=20,000 every f32 N x N buffer is 1.6 GB.
+
+    Its stages are the recorder's spans (``utils/profiling``, with device
+    time on the card): ``mfgp.gram`` (B1 Gram + noise), ``mfgp.chol``
+    (B4), ``mfgp.kinv`` (alpha and K^-1, B5) or ``mfgp.inv`` (Linv and
+    alpha), ``mfgp.grad``.
     """
     if kernel not in ("rbf", "matern32"):
         raise NotImplementedError(f"analytic gradient: {kernel}")
@@ -217,28 +223,36 @@ def _nlml_vg_core(params: MFGPParams, X, fid, y, kernel: str,
     N = X.shape[0]
     v, ls, rhos, nz = (params.variances, params.lengthscales, params.rhos,
                        params.noises)
-    Kn = _cov.mf_train_cov(v, ls, rhos, nz, X, fid, jitter, kernel)
-    L = _la.chol(Kn)
-    del Kn
-    logdet = _la.logdet_from_chol(L)
+    dev = X.is_cuda
+    with profiling.span("mfgp.gram", device=dev):
+        Kn = _cov.mf_train_cov(v, ls, rhos, nz, X, fid, jitter, kernel)
+    with profiling.span("mfgp.chol", device=dev):
+        L = _la.chol(Kn)
+        del Kn
+        logdet = _la.logdet_from_chol(L)
     if inv_mode is None:
-        alpha = _la.solve_posterior(L, y)
-        Kinv = _la.chol_solve_blocked(
-            L, torch.eye(N, dtype=X.dtype, device=X.device))
+        with profiling.span("mfgp.kinv", device=dev):
+            alpha = _la.solve_posterior(L, y)
+            Kinv = _la.chol_solve_blocked(
+                L, torch.eye(N, dtype=X.dtype, device=X.device))
         if not keep_L:
             L = None
-        g = _ck.grad_from_kinv(Kinv, alpha, X, fid, v, ls, rhos, nz, kernel)
+        with profiling.span("mfgp.grad", device=dev):
+            g = _ck.grad_from_kinv(Kinv, alpha, X, fid, v, ls, rhos, nz,
+                                   kernel)
         del Kinv
         Linv = None
     else:
-        Linv = _la.tri_inv_recursive(L)
-        L = None
-        z = _la.tri_lower_matmul(Linv, y[:, None])
-        alpha = _la.tri_lower_matmul_right(z.reshape(1, -1),
-                                           Linv).reshape(-1)
+        with profiling.span("mfgp.inv", device=dev):
+            Linv = _la.tri_inv_recursive(L)
+            L = None
+            z = _la.tri_lower_matmul(Linv, y[:, None])
+            alpha = _la.tri_lower_matmul_right(z.reshape(1, -1),
+                                               Linv).reshape(-1)
         grad_fn = (_ck.syrk_grad_fused if _cov.use_cuda_kernels(X, kernel)
                    else _ck.syrk_grad_fused_plain)
-        g = grad_fn(Linv, alpha, X, fid, v, ls, rhos, nz, kern=kernel)
+        with profiling.span("mfgp.grad", device=dev):
+            g = grad_fn(Linv, alpha, X, fid, v, ls, rhos, nz, kern=kernel)
     val = 0.5 * torch.dot(y, alpha) + 0.5 * logdet + 0.5 * N * _LOG2PI
     g_logvar, g_logls, g_lognoise = g
     grad = MFGPParams(g_logvar, g_logls, torch.zeros_like(rhos), g_lognoise)

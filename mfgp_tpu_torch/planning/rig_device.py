@@ -72,6 +72,7 @@ from mfgp_tpu_torch.ops import linalg as _la
 from mfgp_tpu_torch.planning.primitives import AgentConfig
 from mfgp_tpu_torch.planning.primitives_device import (
     evaluate_trajectory_device, generate_trajectory_device)
+from mfgp_tpu_torch.utils import profiling
 from mfgp_tpu_torch.utils.device import CUDA, resolve
 
 SENTINEL = -10000.0
@@ -1105,6 +1106,7 @@ class DeviceRIG:
             n1 = _ck.LAUNCHES["ar1_cov_fused"]
             t_cap = time.perf_counter()
             g = torch.cuda.CUDAGraph()
+            profiling.count("graph.captures")
             with torch.cuda.graph(g):
                 self.body(st, ctx, draws, it)
             capture_s = time.perf_counter() - t_cap

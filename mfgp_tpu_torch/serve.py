@@ -38,6 +38,7 @@ extraction from host copies) runs outside it.
 from __future__ import annotations
 
 import inspect
+import itertools
 import json
 import queue
 import threading
@@ -47,6 +48,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from mfgp_tpu_torch.utils import profiling
 from mfgp_tpu_torch.utils.device import CUDA, resolve
 
 # one per process, as the card is: see the module docstring
@@ -65,14 +67,24 @@ def _host(a) -> np.ndarray:
     return np.asarray(a, np.float64).reshape(-1)
 
 
+def _jsonable(o):
+    """``json.dumps``'s fallback: a numpy array as nested lists."""
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    raise TypeError(f"{type(o).__name__} is not JSON serializable")
+
+
 class _Pending:
-    __slots__ = ("pts", "include_noise", "event", "mu", "var", "err")
+    __slots__ = ("pts", "include_noise", "event", "mu", "var", "err",
+                 "t_submit")
 
     def __init__(self, pts, include_noise):
         self.pts = pts
         self.include_noise = include_noise
         self.event = threading.Event()
         self.mu = self.var = self.err = None
+        # the queue wait's start, read only while the recorder is on
+        self.t_submit = time.perf_counter() if profiling.active() else None
 
 
 class BatchingQueue:
@@ -86,6 +98,11 @@ class BatchingQueue:
 
     Observability: ``launches`` counts predict calls, ``batched_requests``
     counts requests served, ``max_requests_per_launch`` the best coalesce.
+    While the recorder is on (``utils/profiling``), each request's wait
+    from ``submit`` to the start of the call that serves it (the batching
+    window and the launches ahead of it) is the observation
+    ``serve.queue_wait``, and each call, with its wait for the device
+    lock and its host copy, the span ``serve.launch``.
     """
 
     def __init__(self, predict_fn, max_batch: int = 4096,
@@ -158,8 +175,14 @@ class BatchingQueue:
                 continue
             try:
                 pts = np.concatenate([p.pts for p in batch], axis=0)
-                mu, var = self.predict_fn(
-                    pts, include_noise=batch[0].include_noise)
+                t = time.perf_counter()
+                for p in batch:
+                    if p.t_submit is not None:
+                        profiling.observe("serve.queue_wait",
+                                          t - p.t_submit)
+                with profiling.span("serve.launch"):
+                    mu, var = self.predict_fn(
+                        pts, include_noise=batch[0].include_noise)
                 self.launches += 1
                 self.batched_requests += len(batch)
                 self.max_requests_per_launch = max(
@@ -282,7 +305,9 @@ class ModelServer:
     and retrain between replans: the reference's per-replan `set_data` +
     `optimize` loop
     (reference/PhysicalExperimentCode/GraceExplorationExperiments_MFEGP.py:385-397)
-    served over HTTP."""
+    served over HTTP. ``handle`` returns the posterior's arrays ("mean",
+    "var", "cov", "eid") as float64 numpy arrays; the HTTP server writes
+    them as JSON lists."""
 
     def __init__(self, model, prior_sig: float | None = None,
                  batch_wait: float = 0.005):
@@ -420,10 +445,10 @@ class ModelServer:
                     n = cov.shape[0]
                     cov = _host(cov).reshape(n, n)
                     mu = _host(mu)
-                return {"mean": mu.tolist(), "cov": cov.tolist()}
+                return {"mean": mu, "cov": cov}
             mu, var = self._predict(
                 pts, include_noise=payload.get("include_noise", True))
-            return {"mean": mu.tolist(), "var": var.tolist()}
+            return {"mean": mu, "var": var}
         if route == "/eid":
             from mfgp_tpu_torch.metrics.eid import expected_information_density
 
@@ -431,7 +456,7 @@ class ModelServer:
             eid = expected_information_density(
                 mu, var, self.prior_sig,
                 alpha=payload.get("alpha", 1.0 / 11))
-            return {"eid": _host(eid).tolist()}
+            return {"eid": _host(eid)}
         raise KeyError(route)
 
     def close(self):
@@ -834,46 +859,56 @@ def make_http_server(server, host: str = "127.0.0.1",
                      port: int = 0) -> ThreadingHTTPServer:
     """Build (not start) the HTTP server around a ModelServer, a
     PlannerService, a ModelRouter or a MissionService;
-    ``.server_address`` has the bound port when port=0."""
+    ``.server_address`` has the bound port when port=0.
+
+    While the recorder is on (``utils/profiling``), a POST is the spans
+    ``serve.decode`` (the body's read and ``json.loads``) and
+    ``serve.encode`` (the reply's arrays to lists, ``json.dumps`` and the
+    write), both carrying the request's id."""
+    request_ids = itertools.count()
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
             pass
 
         def _send(self, code, obj):
-            body = json.dumps(obj).encode()
+            body = json.dumps(obj, default=_jsonable).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
 
-        def _answer(self, payload):
+        def _reply(self, payload) -> tuple:
             try:
-                self._send(200, server.handle(self.path, payload))
+                return 200, server.handle(self.path, payload)
             except KeyError as e:
-                self._send(404, {"error": str(e)})
+                return 404, {"error": str(e)}
             except ValueError as e:
-                self._send(400, {"error": str(e)})
+                return 400, {"error": str(e)}
             except Exception as e:  # noqa: BLE001 (the server keeps serving)
                 traceback.print_exc()
-                self._send(500, {"error": str(e)})
+                return 500, {"error": str(e)}
 
         def do_GET(self):
             if self.path in ("/health", "/models", "/missions") or \
                     self.path.startswith(("/models/", "/mission/")):
-                self._answer({})
+                self._send(*self._reply({}))
             else:
                 self._send(404, {"error": "unknown route"})
 
         def do_POST(self):
+            rid = next(request_ids)
             try:
-                n = int(self.headers.get("Content-Length", 0))
-                payload = json.loads(self.rfile.read(n) or b"{}")
+                with profiling.span("serve.decode", rid=rid):
+                    n = int(self.headers.get("Content-Length", 0))
+                    payload = json.loads(self.rfile.read(n) or b"{}")
             except ValueError as e:  # bad length or JSON
                 self._send(400, {"error": str(e)})
                 return
-            self._answer(payload)
+            reply = self._reply(payload)
+            with profiling.span("serve.encode", rid=rid):
+                self._send(*reply)
 
     return _FleetServer((host, port), Handler)
 

@@ -72,6 +72,12 @@ CPU ``torch.Generator`` seeded with the member's seed, drawn replan by
 replan in that order, unless ``replan_draws(seed, r)`` supplies them (the
 tests pass the JAX package's ``jax.random`` draws through it).
 
+While the recorder is on (``utils/profiling``), a mission is the span
+``mission.run`` around its stages' spans, with device time on the card:
+``mission.eid``, ``mission.plan`` (the planner's loop, chain and points),
+``mission.flight``, ``mission.extend``, ``mission.refit`` per replan, then
+``mission.finish`` and the host copy ``mission.readback``.
+
 ``run(mode="stepped")`` runs spans of replans sized as the JAX package
 sizes them under a per-launch wall-clock ceiling (``launch_ceiling_s``);
 CUDA has no such ceiling, so ``"auto"`` is ``"one"``. Not carried over:
@@ -106,6 +112,7 @@ from mfgp_tpu_torch.ops.optimize import batched_lbfgs
 from mfgp_tpu_torch.planning.rig_device import (DeviceRIG,
                                                 prepare_mf_gain_state,
                                                 prepare_sf_gain_state)
+from mfgp_tpu_torch.utils import profiling
 from mfgp_tpu_torch.utils.configs import ExperimentConfig
 from mfgp_tpu_torch.utils.device import CUDA, resolve
 
@@ -780,18 +787,21 @@ class DeviceMission:
 
         # 1. arena posterior -> EID; 2. plan (none once no member is
         # active: every later record of the replan is its no-op's)
-        eid = self._eid_stage(ar, params)
+        dev = self.device.type == "cuda"
+        with profiling.span("mission.eid", device=dev):
+            eid = self._eid_stage(ar, params)
         lanes = torch.arange(M, device=self.device)
         pst = chain = n_e = None
         ok = overflow = torch.zeros_like(active)
         pts = torch.zeros((M, R, 4), **self._f)
         mask = torch.zeros((M, R), dtype=torch.bool, device=self.device)
         if bool(active.any()):
-            pst = self._plan_stage(st, params, tranche, eid, dr["plan"])
-            ok = (pst["best_arena"] >= 0) & active
-            chain, n_e, overflow = self._chain(pst)
-            ok = ok & (n_e > 0) & ~overflow
-            pts, mask = self._assemble_points(pst, chain, n_e)
+            with profiling.span("mission.plan", device=dev):
+                pst = self._plan_stage(st, params, tranche, eid, dr["plan"])
+                ok = (pst["best_arena"] >= 0) & active
+                chain, n_e, overflow = self._chain(pst)
+                ok = ok & (n_e > 0) & ~overflow
+                pts, mask = self._assemble_points(pst, chain, n_e)
 
         # 3. flight rows (benign fallback when the replan is a no-op)
         mask = mask & ok[:, None]
@@ -808,9 +818,11 @@ class DeviceMission:
         pos_fix = torch.where(mask[..., None], pos_raw, pos_last[:, None])
 
         # 4. flight + measurement + fidelity binning
-        (out, noisy, fid, meas_mask, t_flown, x0_next, ok,
-         rt_st) = self._flight_stage(st, r, pst, chain, n_e, ok, pos_fix,
-                                     t_fix, t_raw, t_last, pos_last, mask, dr)
+        with profiling.span("mission.flight", device=dev):
+            (out, noisy, fid, meas_mask, t_flown, x0_next, ok,
+             rt_st) = self._flight_stage(st, r, pst, chain, n_e, ok,
+                                         pos_fix, t_fix, t_raw, t_last,
+                                         pos_last, mask, dr)
 
         # 5. masked bordered extension (train on ESTIMATED positions,
         #    reference/prepGPData.py rows: X=xh, y=measured field) and
@@ -819,13 +831,17 @@ class DeviceMission:
         ar2, theta = dict(ar), st["theta"]
         flew = out is not None
         if flew:
-            newfid = (3 - fid) if self.mf else torch.zeros_like(fid)
-            ar2 = self._extend_arena(params, ar, out["xh"].to(dt),
-                                     newfid.long(), noisy, meas_mask)
-            ar2["cnt"] = torch.where(ok, ar2["cnt"], ar["cnt"])
+            with profiling.span("mission.extend", device=dev):
+                newfid = (3 - fid) if self.mf else torch.zeros_like(fid)
+                ar2 = self._extend_arena(params, ar, out["xh"].to(dt),
+                                         newfid.long(), noisy, meas_mask)
+                ar2["cnt"] = torch.where(ok, ar2["cnt"], ar["cnt"])
             if self.update_hyps:
-                do_fit = ok & (torch.sum(ar2["ma"], 1) >= 5)  # 4 rows + dummy
-                theta, ar2["La"] = self._refit_stage(st, ar2, do_fit, dr, r)
+                with profiling.span("mission.refit", device=dev):
+                    # 4 rows + dummy
+                    do_fit = ok & (torch.sum(ar2["ma"], 1) >= 5)
+                    theta, ar2["La"] = self._refit_stage(st, ar2, do_fit,
+                                                         dr, r)
 
         # 7. bookkeeping + per-replan records
         budget = torch.zeros(M, **self._f)
@@ -919,16 +935,21 @@ class DeviceMission:
         if mode not in ("auto", "one", "stepped"):
             raise ValueError(f"mode must be auto|one|stepped, got {mode!r}")
         ceiling = self._launch_ceiling()
-        st, run = self._init_state(seeds, bd)
-        with torch.no_grad():
-            if mode == "one" or (mode == "auto" and not np.isfinite(ceiling)):
-                for r in range(bd):
-                    st = self._body(r, st, run)
-                self.last_run_launches = 1
-            else:
-                st = self._run_stepped(st, run, bd, ceiling)
-            st = self._finish(st)
-        return self._to_host(st)
+        with profiling.span("mission.run"):
+            st, run = self._init_state(seeds, bd)
+            with torch.no_grad():
+                if mode == "one" or (mode == "auto"
+                                     and not np.isfinite(ceiling)):
+                    for r in range(bd):
+                        st = self._body(r, st, run)
+                    self.last_run_launches = 1
+                else:
+                    st = self._run_stepped(st, run, bd, ceiling)
+                with profiling.span("mission.finish",
+                                    device=self.device.type == "cuda"):
+                    st = self._finish(st)
+            with profiling.span("mission.readback"):
+                return self._to_host(st)
 
     def _run_stepped(self, st, run, bd: int, ceiling: float) -> dict:
         """Spans of replans [r0, r1) of the same body, sized as the JAX

@@ -11,7 +11,7 @@ import pytest
 
 from mfgp_tpu import native as jnative
 from mfgp_tpu_torch import native
-from mfgp_tpu_torch.utils.profiling import PhaseTimer, device_trace, timed
+from mfgp_tpu_torch.utils.profiling import PhaseTimer, device_trace
 
 
 @pytest.fixture(scope="module")
@@ -73,29 +73,16 @@ def test_numpy_fallback_when_unbuilt(tmp_path, monkeypatch):
 
 
 def test_phase_timer(tmp_path):
-    t = PhaseTimer(keep_history=True)
-    with t("a"):
-        time.sleep(0.01)
-    with t("a"):
-        pass
-    s = t.summary()
-    assert s["a"]["calls"] == 2 and s["a"]["total_s"] >= 0.01
-    assert "a" in t.report() and len(t.history) == 2
-    t.dump_json(str(tmp_path / "t.json"))
-    t.dump_csv(str(tmp_path / "t.csv"))
-    assert json.load(open(tmp_path / "t.json"))["a"]["calls"] == 2
-    assert open(tmp_path / "t.csv").readline().startswith("phase,total_s")
-
-
-def test_timed_decorator():
     t = PhaseTimer()
-
-    @timed(t, "work")
-    def f(x):
-        return x + 1
-
-    assert f(1) == 2 and f(2) == 3
-    assert t.summary()["work"]["calls"] == 2
+    with t.span("a"):
+        time.sleep(0.01)
+    with t.span("a"):
+        pass
+    s = t.snapshot()["spans"]
+    assert s["a"]["calls"] == 2 and s["a"]["host_s"] >= 0.01
+    assert s["a"]["device_s"] is None and len(t.records()) == 2
+    t.dump_json(str(tmp_path / "t.json"))
+    assert json.load(open(tmp_path / "t.json"))["spans"]["a"]["calls"] == 2
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):

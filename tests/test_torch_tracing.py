@@ -1,0 +1,312 @@
+"""The port's span recorder (``mfgp_tpu_torch.utils.profiling``) on the CPU:
+off it records nothing and touches no clock, lock or event; on, under a
+``torch.profiler`` or ``enable()``, it records every thread's spans on the
+profiler's clock, their parents and self times, the counters and
+observations; and the fit, the mission and the served request report
+their stages through it."""
+
+import http.client
+import json
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from mfgp_tpu_torch import serve
+from mfgp_tpu_torch.models import mfgp as mf
+from mfgp_tpu_torch.models.gp import GP
+from mfgp_tpu_torch.sim.mission_device import DeviceMission
+from mfgp_tpu_torch.utils import profiling
+from mfgp_tpu_torch.utils.configs import ExperimentConfig
+from mfgp_tpu_torch.utils.profiling import PhaseTimer
+
+JOIN_S = 60.0
+
+
+@pytest.fixture(autouse=True)
+def clean():
+    """Each test starts and ends with the recorder off and empty."""
+    profiling.enable(False)
+    profiling.reset()
+    yield
+    profiling.enable(False)
+    profiling.reset()
+
+
+class _Untouchable:
+    """Raises on any use: stands for a lock, clock or event that the off
+    path must not touch."""
+
+    def __getattr__(self, name):
+        raise AssertionError(f"touched .{name} while off")
+
+    def __enter__(self):
+        raise AssertionError("took the lock while off")
+
+    def __exit__(self, *a):
+        return False
+
+
+def test_off_records_nothing_and_touches_no_clock_lock_or_event(
+        monkeypatch):
+    assert not profiling.active()
+    monkeypatch.setattr(profiling.RECORDER, "_lock", _Untouchable())
+    monkeypatch.setattr(profiling, "time", _Untouchable())
+    monkeypatch.setattr(torch.cuda, "Event", _Untouchable())
+    a = profiling.span("a")
+    b = profiling.span("b", device=True, rid=3)
+    assert a is b
+    with a, b:
+        profiling.count("c")
+        profiling.observe("o", 1.0)
+    monkeypatch.undo()
+    snap = profiling.snapshot()
+    assert snap["spans"] == {} and snap["counters"] == {}
+    assert snap["observations"] == {} and not profiling.RECORDER.records()
+
+
+def test_enable_records_without_a_profiler():
+    profiling.enable()
+    assert profiling.active()
+    with profiling.span("x", rid=7):
+        profiling.count("c", 2)
+        profiling.observe("o", 0.25)
+        profiling.observe("o", 0.75)
+    profiling.enable(False)
+    assert not profiling.active()
+    with profiling.span("after"):
+        profiling.count("c")
+    snap = profiling.snapshot()
+    assert snap["spans"]["x"]["calls"] == 1 and "after" not in snap["spans"]
+    assert snap["spans"]["x"]["device_s"] is None
+    assert snap["counters"] == {"c": 2}
+    assert snap["observations"]["o"] == dict(n=2, sum_s=1.0)
+    assert profiling.RECORDER.records()[0]["rid"] == 7
+
+
+def test_every_threads_spans_are_recorded_and_the_profiled_ones_traced():
+    """Under a profiler the recorder takes a worker thread's spans too, on
+    the profiler's clock; only the profiling thread's spans are also
+    ``record_function`` ranges of the profile, with the same start and
+    end."""
+    def work():
+        with profiling.span("worker.work"):
+            time.sleep(0.005)
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert profiling.active()
+        with profiling.span("main.work"):
+            time.sleep(0.02)
+        t = threading.Thread(target=work)
+        t.start()
+        t.join(timeout=JOIN_S)
+    assert not t.is_alive() and not profiling.active()
+    recs = {r["name"]: r for r in profiling.RECORDER.records()}
+    assert set(recs) == {"main.work", "worker.work"}
+    assert recs["worker.work"]["thread"] != recs["main.work"]["thread"]
+    events = {e.name(): e for e in prof.profiler.kineto_results.events()}
+    assert "main.work" in events and "worker.work" not in events
+    ev, r = events["main.work"], recs["main.work"]
+    tol = 5_000_000  # ns: the record_function's entry and exit
+    assert abs(r["start_ns"] - ev.start_ns()) < tol
+    assert abs(r["end_ns"] - ev.end_ns()) < tol
+    assert r["end_ns"] - r["start_ns"] >= 20_000_000
+
+
+def test_nested_spans_parents_self_time_and_dropped_records():
+    t = PhaseTimer(capacity=3)
+    with t.span("outer"):
+        for _ in range(2):
+            with t.span("inner", rid=1):
+                time.sleep(0.01)
+    recs = {r["id"]: r for r in t.records()}
+    inner = [r for r in recs.values() if r["name"] == "inner"]
+    (outer,) = [r for r in recs.values() if r["name"] == "outer"]
+    assert {r["parent"] for r in inner} == {outer["id"]}
+    assert outer["parent"] is None and {r["rid"] for r in inner} == {1}
+    s = t.snapshot()["spans"]
+    covered = sum(r["end_ns"] - r["start_ns"] for r in inner) * 1e-9
+    assert s["inner"]["calls"] == 2 and s["inner"]["host_s"] >= 0.02
+    assert s["inner"]["self_s"] == pytest.approx(s["inner"]["host_s"])
+    assert s["outer"]["self_s"] == pytest.approx(
+        s["outer"]["host_s"] - covered, abs=1e-9)
+    assert 0 <= s["outer"]["self_s"] < s["outer"]["host_s"] - 0.019
+    with t.span("late"):
+        pass
+    snap = t.snapshot()
+    assert snap["dropped"] == 1 and "late" not in snap["spans"]
+    t.reset()
+    assert t.snapshot() == dict(spans={}, counters={}, observations={},
+                                dropped=0)
+
+
+def test_threads_recording_at_once_lose_nothing():
+    """More threads than cores recording at a short switch interval: no
+    span, count or observation is lost, and each inner span's parent is
+    its own thread's outer span."""
+    import sys
+
+    t = PhaseTimer()
+    n_threads, n = 16, 200
+
+    def work():
+        for _ in range(n):
+            with t.span("outer"):
+                with t.span("inner"):
+                    t.count("c")
+                    t.observe("o", 1.0)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=JOIN_S)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    snap = t.snapshot()
+    total = n_threads * n
+    assert snap["spans"]["outer"]["calls"] == total
+    assert snap["spans"]["inner"]["calls"] == total
+    assert snap["counters"] == {"c": total}
+    assert snap["observations"]["o"] == dict(n=total, sum_s=float(total))
+    recs = {r["id"]: r for r in t.records()}
+    for r in recs.values():
+        if r["name"] == "inner":
+            outer = recs[r["parent"]]
+            assert outer["name"] == "outer" and outer["thread"] == r["thread"]
+
+
+def test_device_trace_writes_spans_json(tmp_path):
+    profiling.enable()
+    with profiling.span("before"):
+        pass
+    profiling.enable(False)
+    with profiling.device_trace(str(tmp_path / "tr")):
+        with profiling.span("inside"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+        profiling.count("c")
+        profiling.observe("o", 0.5)
+    out = json.load(open(tmp_path / "tr" / profiling.SPANS_FILE))
+    assert set(out["spans"]) == {"inside"}  # reset at entry
+    assert out["spans"]["inside"]["calls"] == 1
+    assert out["counters"] == {"c": 1}
+    assert out["observations"]["o"]["n"] == 1
+    assert (tmp_path / "tr" / profiling.TRACE_FILE).is_file()
+
+
+@pytest.mark.parametrize("route,stages", [
+    ("nlml_value_and_grad", ["mfgp.gram", "mfgp.chol", "mfgp.kinv",
+                             "mfgp.grad"]),
+    ("nlml_value_grad_state_inv", ["mfgp.gram", "mfgp.chol", "mfgp.inv",
+                                   "mfgp.grad"]),
+])
+def test_a_fit_evaluation_records_its_stages(route, stages):
+    g = torch.Generator().manual_seed(0)
+    X = torch.rand(40, 3, generator=g, dtype=torch.float64) * 5
+    fid = torch.arange(40) % 3
+    y = torch.sin(X[:, 0])
+    p = mf.MFGPParams.default(3, 3, dtype=torch.float64)
+    profiling.enable()
+    getattr(mf, route)(p, X, fid, y, kernel="rbf", jitter=1e-6)
+    spans = profiling.snapshot()["spans"]
+    assert set(spans) == set(stages)
+    for s in spans.values():
+        assert s["calls"] == 1 and s["device_s"] is None  # on the CPU
+
+
+def test_served_requests_record_wait_launch_and_json():
+    """N concurrent /predict posts under a profiler: N queue waits, one
+    ``serve.launch`` per predict call, a decode and an encode per request
+    sharing its id."""
+    g = np.random.default_rng(0)
+    X = g.uniform(0, 10, (30, 3))
+    ms = serve.ModelServer(GP(X, np.sin(X[:, 0]), jitter=1e-8,
+                              device="cpu"))
+    srv = serve.make_http_server(ms, port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    n = 6
+    barrier = threading.Barrier(n)
+    codes = [None] * n
+
+    def client(i):
+        barrier.wait(timeout=JOIN_S)
+        conn = http.client.HTTPConnection(*srv.server_address,
+                                          timeout=JOIN_S)
+        try:
+            conn.request("POST", "/predict", body=json.dumps(
+                {"points": X[i:i + 2 + i].tolist()}))
+            r = conn.getresponse()
+            codes[i] = (r.status, len(json.loads(r.read())["mean"]))
+        finally:
+            conn.close()
+
+    try:
+        launches0 = ms.batcher.launches
+        with profile(activities=[ProfilerActivity.CPU]):
+            clients = [threading.Thread(target=client, args=(i,))
+                       for i in range(n)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=JOIN_S)
+        assert not any(c.is_alive() for c in clients)
+        assert codes == [(200, 2 + i) for i in range(n)]
+        deadline = time.monotonic() + JOIN_S  # the last encode's record
+        while (profiling.snapshot()["spans"].get("serve.encode", {})
+               .get("calls", 0) < n and time.monotonic() < deadline):
+            time.sleep(0.01)
+        snap = profiling.snapshot()
+        spans = snap["spans"]
+        assert snap["observations"]["serve.queue_wait"]["n"] == n
+        assert snap["observations"]["serve.queue_wait"]["sum_s"] > 0
+        assert spans["serve.launch"]["calls"] == (ms.batcher.launches
+                                                  - launches0)
+        assert spans["serve.decode"]["calls"] == n
+        assert spans["serve.encode"]["calls"] == n
+        rids = {}
+        for r in profiling.RECORDER.records():
+            if r["name"] in ("serve.decode", "serve.encode"):
+                rids.setdefault(r["name"], set()).add(r["rid"])
+        assert rids["serve.decode"] == rids["serve.encode"]
+        assert len(rids["serve.decode"]) == n
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=JOIN_S)
+        ms.close()
+    assert not th.is_alive()
+
+
+def test_a_mission_records_its_stages_per_replan():
+    """The mission tests' small CPU mission (MF, refit, two replans):
+    one ``mission.run``, ``mission.finish`` and ``mission.readback``, and
+    each stage once per replan."""
+    exp = ExperimentConfig(B=20.0, BD=2, update_hyps=True,
+                           multi_fidelity=True, ergodic=False)
+    m = DeviceMission(exp, seed=1, device="cpu", plan_iters=6, e_max=6,
+                      max_nodes=16, samples_per_edge=6, fit_restarts=2)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small tensors; the workers share the cores
+    try:
+        profiling.enable()
+        res = m.run()
+    finally:
+        torch.set_num_threads(threads)
+    spans = profiling.snapshot()["spans"]
+    assert res.n_replans == 2
+    for name in ("mission.run", "mission.finish", "mission.readback"):
+        assert spans[name]["calls"] == 1, name
+    for name in ("mission.eid", "mission.plan", "mission.flight",
+                 "mission.extend", "mission.refit"):
+        assert spans[name]["calls"] == 2, name
+        assert spans[name]["device_s"] is None
+    assert spans["mission.run"]["host_s"] >= sum(
+        spans[k]["host_s"] for k in spans if k != "mission.run")
