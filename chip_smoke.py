@@ -1470,8 +1470,9 @@ def gp_unit_check(torch, ck, problem, params, grad, state, info):
 
 def eval_phases(torch, ck, mf, la, cov, problem, kern: str = "rbf"):
     """Phase 6: where one fit evaluation's time goes at full size (the
-    problem's params), on CUDA events: the analytic evaluation's steps as
-    ``_nlml_vg_core(inv_mode=None)`` runs them, and the autodiff
+    problem's params), on CUDA events: the blocked route's steps as
+    ``_nlml_vg_core(inv_mode=None)`` runs them (a float32 fit on the card
+    takes the unit's route, Linv and B2, instead), and the autodiff
     evaluation's forward and backward."""
     Xt, ft, yt, _, _, p = problem
     v, ls, rho, nz = p.variances, p.lengthscales, p.rhos, p.noises

@@ -153,8 +153,10 @@ def _gp_vg_core(params: GPParams, X, y, extra_noise_diag=0.0,
 
 def nlml_value_and_grad(params: GPParams, X, y, extra_noise_diag=0.0,
                         kernel: str = "rbf", jitter: float = 0.0):
+    """``mfgp.nlml_value_and_grad`` at F=1: Linv and B2 on the card, the
+    blocked solves elsewhere (``mfgp._fit_inv_mode``)."""
     val, grad, *_ = _gp_vg_core(params, X, y, extra_noise_diag, kernel,
-                                jitter)
+                                jitter, inv_mode=_mf._fit_inv_mode(X, kernel))
     return val, grad
 
 

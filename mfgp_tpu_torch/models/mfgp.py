@@ -202,8 +202,17 @@ def _nlml_vg_core(params: MFGPParams, X, fid, y, kernel: str,
     divide and conquer), alpha as two triangular products with it, and the
     gradient from Linv through the fused B2 kernel (CUDA float32) or the
     structure-aware syrk and the plain contractions; L is not returned.
+    The two routes evaluate the same NLML and trace-identity gradient in
+    another order, from the same factor, and are as near to float64. The
+    blocked solves spend two thirds of their 2 N^3 multiplies on the
+    identity's zeros; Linv takes ~N^3/6 and B2 never forms K^-1, so where
+    the kernels apply the inverse route is the faster at every N (on an
+    H100, rbf, F=3: 0.77x the blocked route's time at N=705, 0.33x at
+    N=20,000).
+    ``_fit_inv_mode`` picks the route of the evaluations that keep no
+    factor.
     There is no reduced-precision mode: the port's products are IEEE fp32
-    or fp64.
+    or fp64 (B2 in 3xTF32, fp32's accuracy).
 
     Each N x N buffer is freed once consumed (Kn after the factorization,
     L after K^-1 or Linv is formed, K^-1 after the contractions), and no
@@ -259,11 +268,22 @@ def _nlml_vg_core(params: MFGPParams, X, fid, y, kernel: str,
     return val, grad, L, alpha, Linv
 
 
+def _fit_inv_mode(X, kernel: str) -> str | None:
+    """The route of a fit's evaluation, which keeps no factor: the inverse
+    factor and B2 (``"highest"``) where the hand-written kernels apply
+    (``use_cuda_kernels``: CUDA, float32, rbf or matern32), else K^-1 by
+    blocked solves, the JAX package's order of evaluation."""
+    return "highest" if _cov.use_cuda_kernels(X, kernel) else None
+
+
 def nlml_value_and_grad(params: MFGPParams, X, fid, y, kernel: str = "rbf",
                         jitter: float = 0.0):
     """NLML and its analytic trace-identity gradient (rhos held fixed,
-    their gradient zero)."""
-    val, grad, *_ = _nlml_vg_core(params, X, fid, y, kernel, jitter)
+    their gradient zero): every restart fit's evaluation. On the card it
+    takes Linv and B2 and never forms K^-1; elsewhere the blocked solves
+    (``_fit_inv_mode``)."""
+    val, grad, *_ = _nlml_vg_core(params, X, fid, y, kernel, jitter,
+                                  inv_mode=_fit_inv_mode(X, kernel))
     return val, grad
 
 

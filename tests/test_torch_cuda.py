@@ -18,6 +18,7 @@ from mfgp_tpu_torch.models import mfgp as tm
 from mfgp_tpu_torch.ops import covariance as tcov
 from mfgp_tpu_torch.ops import cuda_kernels as ck
 from mfgp_tpu_torch.ops import linalg as tla
+from mfgp_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 KERNELS = ["rbf", "matern32"]
@@ -426,6 +427,60 @@ def test_gp_unit_through_b2(dev, gen):
     for a, b in zip(g32, g64):
         torch.testing.assert_close(a.double(), b, rtol=2e-3,
                                    atol=2e-3 * float(b.abs().max()))
+
+
+def _evaluation_errors(v, g, v64, g64):
+    """(|v - v64| / |v64|, max |g - g64| / max |g64|): the fit cell's
+    ``nlml_rel`` and ``grad_rel`` (benchmark/generators/fit_eval.py)."""
+    flat = [torch.cat([t.double().reshape(-1) for t in x]) for x in (g, g64)]
+    return (abs(float(v) - float(v64)) / abs(float(v64)),
+            float((flat[0] - flat[1]).abs().max() / flat[1].abs().max()))
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_fit_evaluation_takes_linv_and_b2_on_the_card(dev, kernel):
+    """``nlml_value_and_grad`` at N=4,096 in float32 takes the inverse
+    factor and B2 (``mfgp.inv`` and one B2 launch, no ``mfgp.kinv``),
+    within the fit cell's limits of the float64 evaluation (``nlml_rel``
+    0.012, ``grad_rel`` 0.05), and no further from it than the blocked
+    route at the same theta."""
+    X, fid, y, _, _, p = _parallel_problem(dev, N=4096)
+    profiling.enable()
+    profiling.reset()
+    try:
+        ck.reset_launches()
+        v, g = tm.nlml_value_and_grad(p, X, fid, y, kernel=kernel)
+        spans = profiling.snapshot()["spans"]
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert "mfgp.inv" in spans and "mfgp.kinv" not in spans
+    assert ck.LAUNCHES["syrk_grad_fused"] == 1
+    vb, gb, *_ = tm._nlml_vg_core(p, X, fid, y, kernel, 0.0)
+    v64, g64 = tm.nlml_value_and_grad(tm.MFGPParams(*_f64(*p)),
+                                      *_f64(X, fid, y), kernel=kernel)
+    inv = _evaluation_errors(v, g, v64, g64)
+    blocked = _evaluation_errors(vb, gb, v64, g64)
+    assert inv[0] <= 0.012 and inv[1] <= 0.05, (inv, blocked)
+    # both routes start from one float32 factor, whose rounding sets both
+    # errors; their own last roundings may differ by float32's 2^-23
+    assert all(a <= b + 2.0 ** -23 for a, b in zip(inv, blocked)), (
+        inv, blocked)
+
+
+def test_fit_evaluation_is_nan_where_the_gram_does_not_factor(dev):
+    """A float32 Gram that is not positive definite (a near-constant
+    kernel over 4,096 points with a 1e-9 noise) gives a NaN value and
+    gradient on the inverse route, for the fits' ``penalize_nonfinite``,
+    with no exception."""
+    X, fid, y, _, _, p = _parallel_problem(dev, N=4096)
+    p = p._replace(log_lengthscales=torch.full_like(p.log_lengthscales, 9.0),
+                   log_noises=torch.full_like(p.log_noises, -20.7))
+    v, g = tm.nlml_value_and_grad(p, X, fid, y)
+    assert torch.isnan(v)
+    assert all(bool(torch.isnan(t).any()) for t in (g.log_variances,
+                                                    g.log_lengthscales,
+                                                    g.log_noises))
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mfgp_tpu_torch import serve
+from mfgp_tpu_torch.models import gp as tg
 from mfgp_tpu_torch.models import mfgp as mf
 from mfgp_tpu_torch.models.gp import GP
+from mfgp_tpu_torch.ops import covariance as tcov
 from mfgp_tpu_torch.sim.mission_device import DeviceMission
 from mfgp_tpu_torch.utils import profiling
 from mfgp_tpu_torch.utils.configs import ExperimentConfig
@@ -219,6 +221,55 @@ def test_a_fit_evaluation_records_its_stages(route, stages):
     assert set(spans) == set(stages)
     for s in spans.values():
         assert s["calls"] == 1 and s["device_s"] is None  # on the CPU
+
+
+@pytest.mark.parametrize("kernel", ["rbf", "matern32"])
+@pytest.mark.parametrize("family", ["mfgp", "gp"])
+def test_a_fit_evaluation_takes_linv_and_b2_where_the_kernels_apply(
+        family, kernel, monkeypatch):
+    """``nlml_value_and_grad`` (the MFGP's at F=3, the GP's at F=1) keeps
+    the blocked solves on the CPU (``mfgp.kinv``), and takes the inverse
+    factor and B2 where ``use_cuda_kernels`` holds (``mfgp.inv``, no
+    ``mfgp.kinv``), with the blocked route's float64 value and gradient to
+    1e-9. The gate is made to hold on the CPU, where B1 and B2 take their
+    plain versions."""
+    g = torch.Generator().manual_seed(1)
+    N = 48
+    X = torch.rand(N, 3, generator=g, dtype=torch.float64) * 5
+    y = torch.sin(X[:, 0]) + torch.cos(X[:, 1])
+    if family == "mfgp":
+        fid = torch.arange(N) % 3
+        p = mf.MFGPParams(torch.log(torch.tensor([1.3, 0.8, 0.5])).double(),
+                          torch.log(torch.full((3, 3), 1.2)).double(),
+                          torch.tensor([0.9, 1.1]).double(),
+                          torch.log(torch.tensor([0.05, 0.03, 0.02])).double())
+
+        def evaluate():
+            return mf.nlml_value_and_grad(p, X, fid, y, kernel=kernel,
+                                          jitter=1e-8)
+    else:
+        p = tg.GPParams(torch.tensor(0.3).double(),
+                        torch.log(torch.tensor([1.0, 1.5, 0.8])).double(),
+                        torch.tensor(-3.0).double())
+
+        def evaluate():
+            return tg.nlml_value_and_grad(p, X, y, kernel=kernel,
+                                          jitter=1e-8)
+
+    def run():
+        profiling.reset()
+        v, grad = evaluate()
+        return v, torch.cat([t.reshape(-1) for t in grad]), set(
+            profiling.snapshot()["spans"])
+
+    profiling.enable()
+    v0, g0, spans = run()
+    assert "mfgp.kinv" in spans and "mfgp.inv" not in spans
+    monkeypatch.setattr(tcov, "use_cuda_kernels", lambda *a: True)
+    v1, g1, spans = run()
+    assert "mfgp.inv" in spans and "mfgp.kinv" not in spans
+    assert abs(float(v1 - v0)) <= 1e-9 * abs(float(v0))
+    assert float((g1 - g0).abs().max()) <= 1e-9 * float(g0.abs().max())
 
 
 def test_served_requests_record_wait_launch_and_json():
