@@ -22,10 +22,19 @@ Per panel: ``ops.linalg.chol`` and ``torch.linalg.solve_triangular``; the
 trailing update is a plain ``torch.matmul`` (the JAX package computes it
 outside any Pallas kernel). On the card each rank assembles its
 covariance columns with B1 (``ops/cuda_kernels``).
+
+``block=None``, the default, takes the panel width from the shard
+(``panel_width``): the largest divisor of n / n_mp that is at most 256, so
+that an n such as 80,000 over 4 ranks (20,000 columns each, panels of 250)
+runs without a width chosen by hand. The fully sharded NLML's stages are
+the recorder's spans (``utils/profiling``): ``par.nlml`` around an
+evaluation, ``par.gram``, ``par.chol``, ``par.trisolve`` and ``par.grad``
+inside it, and ``par.comm`` (``parallel/mesh``) inside those.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
@@ -38,9 +47,13 @@ from mfgp_tpu_torch.ops import linalg as _la
 from mfgp_tpu_torch.parallel.mesh import (MP_AXIS, all_gather, axis_size,
                                           broadcast, psum)
 from mfgp_tpu_torch.parallel.sharded import _eye_cols, _sharded_grad
+from mfgp_tpu_torch.utils import profiling
 from mfgp_tpu_torch.utils.device import CUDA, as_tensor_on
 
 _LOG2PI = math.log(2.0 * math.pi)
+# the default panel width: the widest divisor of the shard's column count
+# up to PANEL_MAX; under PANEL_MIN the sweeps are launch-bound
+PANEL_MAX, PANEL_MIN = 256, 32
 
 
 def _owner_and_slot(k, nc, block, n_mp, layout):
@@ -95,16 +108,44 @@ def panel_utilization(n: int, n_mp: int, block: int, layout: str) -> float:
     return float(np.mean(ratios))
 
 
-def _check_layout(mesh, n, block, layout):
-    if layout not in ("block", "cyclic"):
-        raise ValueError(layout)
-    n_mp = axis_size(mesh, MP_AXIS)
+def _widest_panel(nc: int) -> int:
+    return max(d for d in range(1, min(nc, PANEL_MAX) + 1) if nc % d == 0)
+
+
+def panel_width(n: int, n_mp: int, block: int | None = None) -> int:
+    """The panel width of an n-column factor split over n_mp ranks:
+    ``block`` where given (it must divide n / n_mp), else the largest
+    divisor of n / n_mp that is at most 256 (250 at n = 80,000, 20,000 or
+    1,000 over 4 ranks). Raises where n_mp does not divide n, and, for the
+    default, where that divisor is under 32, naming the nearest n that
+    works."""
     if n % n_mp:
         raise ValueError(f"n={n} not divisible by mp={n_mp}")
     nc = n // n_mp
-    if nc % block:
-        raise ValueError(f"column block {nc} not divisible by panel {block}")
-    return n_mp, nc
+    if block is not None:
+        if nc % block:
+            raise ValueError(
+                f"column block {nc} not divisible by panel {block}")
+        return block
+    width = _widest_panel(nc)
+    if width < PANEL_MIN:
+        near = next(m for d in itertools.count() for m in (n - d, n + d)
+                    if m >= PANEL_MIN * n_mp and m % n_mp == 0
+                    and _widest_panel(m // n_mp) >= PANEL_MIN)
+        raise ValueError(
+            f"n={n} over mp={n_mp}: the widest panel dividing the {nc}-column "
+            f"block is {width}, under {PANEL_MIN}; the nearest n that works "
+            f"is {near}")
+    return width
+
+
+def _check_layout(mesh, n, block, layout):
+    """(n_mp, columns per rank, panel width) of an n-column layout."""
+    if layout not in ("block", "cyclic"):
+        raise ValueError(layout)
+    n_mp = axis_size(mesh, MP_AXIS)
+    block = panel_width(n, n_mp, block)
+    return n_mp, n // n_mp, block
 
 
 def _my_cols(mesh, n, block, layout) -> np.ndarray:
@@ -181,15 +222,16 @@ def _tri_solve_upper_body(mesh, L_cols, Y_cols, n, block, layout="block"):
     return X
 
 
-def make_sharded_cholesky(mesh, n: int, block: int = 256,
+def make_sharded_cholesky(mesh, n: int, block: int | None = None,
                           layout: str = "block"):
     """Build ``f(K) -> L`` for (n, n) SPD inputs, factorized in column
     blocks over mp; ``L`` comes back whole on every rank (each rank's
-    columns gathered). ``n`` must divide by ``n_mp * block``.
+    columns gathered). ``n`` must divide by ``n_mp * block`` (``block``
+    by default ``panel_width``'s).
 
     ``layout="cyclic"`` uses the block-cyclic column assignment (panel p ->
     rank p % n_mp); the caller-facing contract is the same."""
-    n_mp, nc = _check_layout(mesh, n, block, layout)
+    n_mp, nc, block = _check_layout(mesh, n, block, layout)
     inv = np.argsort(cyclic_permutation(n, n_mp, block))
 
     def f(K: torch.Tensor) -> torch.Tensor:
@@ -203,15 +245,19 @@ def make_sharded_cholesky(mesh, n: int, block: int = 256,
     return f
 
 
-def make_sharded_tri_solves(mesh, n: int, ncols: int, block: int = 256):
+def make_sharded_tri_solves(mesh, n: int, ncols: int,
+                            block: int | None = None):
     """Build ``(lower_fn, upper_fn)``, ``f(L, B) -> X`` with ``L X = B``
     and ``L^T X = B``: L and the right-hand side are split in column blocks
     over mp; each sweep step is one (n - k, block) panel broadcast, a local
-    block solve and a local elimination. ``ncols`` is the global number of
-    right-hand-side columns (divisible by the mp extent). X comes back
-    whole on every rank."""
+    block solve and a local elimination (``block`` by default
+    ``panel_width``'s). ``ncols`` is the global number of right-hand-side
+    columns (divisible by the mp extent). X comes back whole on every
+    rank."""
     n_mp = axis_size(mesh, MP_AXIS)
-    if n % n_mp or (n // n_mp) % block:
+    if block is None:
+        block = panel_width(n, n_mp)
+    elif n % n_mp or (n // n_mp) % block:
         raise ValueError(f"n={n} incompatible with mp={n_mp}, block={block}")
     if ncols % n_mp:
         raise ValueError(f"ncols={ncols} not divisible by mp={n_mp}")
@@ -229,7 +275,8 @@ def make_sharded_tri_solves(mesh, n: int, ncols: int, block: int = 256):
     return run(_tri_solve_lower_body), run(_tri_solve_upper_body)
 
 
-def make_fully_sharded_nlml_value_and_grad(mesh, n: int, block: int = 256,
+def make_fully_sharded_nlml_value_and_grad(mesh, n: int,
+                                           block: int | None = None,
                                            jitter: float = 0.0,
                                            layout: str = "block"):
     """Memory-scaled MFGP NLML value and gradient (rbf, rhos fixed).
@@ -248,39 +295,51 @@ def make_fully_sharded_nlml_value_and_grad(mesh, n: int, block: int = 256,
 
     Per-rank memory: a few N^2/n_mp + O(N). ``layout="cyclic"`` gives each
     rank its block-cyclic columns, assembled directly (no permutation);
-    value and gradient do not depend on the layout. Returns ``f(params, X,
-    fid, y)``."""
-    n_mp, nc = _check_layout(mesh, n, block, layout)
+    value and gradient do not depend on the layout. ``block`` is by default
+    ``panel_width``'s. Returns ``f(params, X, fid, y)``; each call is the
+    recorder's span ``par.nlml`` (module docstring)."""
+    n_mp, nc, block = _check_layout(mesh, n, block, layout)
 
     def f(params: _mf.MFGPParams, X, fid, y):
-        cols = torch.as_tensor(_my_cols(mesh, n, block, layout),
-                               device=X.device)
-        Xc, fc = X[cols], fid[cols]
-        K_cols = _cov.mf_cross_cov(params.variances, params.lengthscales,
-                                   params.rhos, X, fid, Xc, fc, "rbf")
-        diag = (cols, torch.arange(nc, device=X.device))
-        K_cols[diag] += _k.mf_noise_diag(fc, params.noises) + jitter
-        L_cols = _chol_cols_body(mesh, K_cols, n, block, layout)
-        Kinv_cols = _tri_solve_upper_body(
-            mesh, L_cols, _tri_solve_lower_body(
-                mesh, L_cols, _eye_cols(n, cols, X), n, block, layout),
-            n, block, layout)
-        logdet = 2.0 * psum(mesh, torch.sum(torch.log(L_cols[diag])))
-        del L_cols
-        alpha = psum(mesh, Kinv_cols @ y[cols])
-        val = 0.5 * torch.dot(y, alpha) + 0.5 * logdet + 0.5 * n * _LOG2PI
-        return val, _sharded_grad(mesh, Kinv_cols, alpha, X, fid, cols,
-                                  params)
+        dev = X.is_cuda
+        with profiling.span("par.nlml", device=dev):
+            cols = torch.as_tensor(_my_cols(mesh, n, block, layout),
+                                   device=X.device)
+            diag = (cols, torch.arange(nc, device=X.device))
+            with profiling.span("par.gram", device=dev):
+                Xc, fc = X[cols], fid[cols]
+                K_cols = _cov.mf_cross_cov(
+                    params.variances, params.lengthscales, params.rhos, X,
+                    fid, Xc, fc, "rbf")
+                K_cols[diag] += _k.mf_noise_diag(fc, params.noises) + jitter
+            with profiling.span("par.chol", device=dev):
+                L_cols = _chol_cols_body(mesh, K_cols, n, block, layout)
+            with profiling.span("par.trisolve", device=dev):
+                Kinv_cols = _tri_solve_upper_body(
+                    mesh, L_cols, _tri_solve_lower_body(
+                        mesh, L_cols, _eye_cols(n, cols, X), n, block,
+                        layout), n, block, layout)
+            logdet = 2.0 * psum(mesh, torch.sum(torch.log(L_cols[diag])))
+            del L_cols
+            alpha = psum(mesh, Kinv_cols @ y[cols])
+            val = (0.5 * torch.dot(y, alpha) + 0.5 * logdet
+                   + 0.5 * n * _LOG2PI)
+            with profiling.span("par.grad", device=dev):
+                grad = _sharded_grad(mesh, Kinv_cols, alpha, X, fid, cols,
+                                     params)
+        return val, grad
 
     return f
 
 
 def fit_memory_scaled(mesh, X, fid, y, *, steps: int = 100,
-                      learning_rate: float = 0.05, block: int = 256,
+                      learning_rate: float = 0.05, block: int | None = None,
                       jitter: float = 1e-6, params0=None, device=CUDA):
     """Adam fit of one MFGP whose every gradient is fully sharded over mp
-    (``make_fully_sharded_nlml_value_and_grad``), in float32 as the JAX
-    package's. For N beyond one device's memory. Returns (params,
+    (``make_fully_sharded_nlml_value_and_grad``, ``block`` by default
+    ``panel_width``'s), in float32 as the JAX package's. For N beyond one
+    device's memory: on a node of GPUs every rank calls ``init_ranks()``,
+    ``make_mesh(mp=<ranks>)`` and then this. Returns (params,
     loss_history)."""
     from mfgp_tpu_torch.parallel.train import adam_init, adam_update
 

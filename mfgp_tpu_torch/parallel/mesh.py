@@ -3,8 +3,12 @@
 
 The JAX package runs one program over a ``jax.sharding.Mesh`` and lets
 ``shard_map``/GSPMD place the collectives. Here every device is a process
-(a rank) that the caller starts and joins with
-``torch.distributed.init_process_group``; the mesh is a
+(a rank). On a node of GPUs the ranks are started by ``torchrun
+--nproc-per-node <GPUs> script.py``, and each calls ``init_ranks()`` before
+it makes a tensor: that binds rank r to ``cuda:LOCAL_RANK`` and joins the
+process group with a finite timeout. A caller that starts its ranks
+otherwise joins them with ``torch.distributed.init_process_group`` and
+binds each to its device itself. The mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over those ranks with the
 JAX package's two dimensions:
 
@@ -21,18 +25,23 @@ Every collective of the package goes through ``psum``, ``broadcast``,
 bytes in ``COLLECTIVES``. gloo takes CUDA tensors in some collectives
 only: an operand of a collective outside ``GLOO_CUDA_OPS`` is staged
 through the host explicitly and counted under ``host_staged``. NCCL is
-never staged.
+never staged. Each collective is also the recorder's span ``par.comm``
+(``utils/profiling``), and its bytes feed the recorder's counter
+``par.collective_bytes``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import pickle
+from datetime import timedelta
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from mfgp_tpu_torch.utils import profiling
 from mfgp_tpu_torch.utils.device import resolve
 
 DP_AXIS = "dp"
@@ -49,6 +58,44 @@ COLLECTIVES = {"all_reduce": 0, "broadcast": 0, "all_gather": 0,
 def reset_collectives() -> None:
     for k in COLLECTIVES:
         COLLECTIVES[k] = 0
+
+
+def init_ranks(backend: str = "nccl",
+               timeout_s: float = 120.0) -> torch.device:
+    """Join this process to the process group that ``torchrun`` starts, and
+    return the rank's device.
+
+    Reads the launcher's environment: ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK`` (``RANK`` where absent) and the rendezvous
+    ``MASTER_ADDR``/``MASTER_PORT``. With ``"nccl"`` the rank binds
+    ``cuda:LOCAL_RANK`` (``torch.cuda.set_device``) before the group is
+    made, and the group is bound to that device, so the ranks of one node
+    land on their own GPUs (the port's tensors go to the current device);
+    with ``"gloo"`` the rank's device is the CPU. A collective that waits
+    longer than ``timeout_s`` fails, and NCCL then tears the process down:
+    one failed rank stops the others within the timeout instead of leaving
+    them blocked in a broadcast. ``make_mesh`` runs on the group as it
+    is."""
+    env = os.environ
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                           "MASTER_PORT") if k not in env]
+    if missing:
+        raise RuntimeError(
+            "init_ranks needs the launcher's environment "
+            f"({', '.join(missing)} unset): start the ranks with torchrun "
+            "--nproc-per-node <n>")
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    kw = {}
+    if backend == "nccl":
+        device = torch.device("cuda", int(env.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(device)
+        kw["device_id"] = device
+    else:
+        device = torch.device("cpu")
+    dist.init_process_group(backend, init_method="env://", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=timeout_s), **kw)
+    return device
 
 
 def make_mesh(n_devices: int | None = None, mp: int | None = None,
@@ -125,6 +172,7 @@ def _count(op: str, nbytes: int, staged: bool) -> None:
     COLLECTIVES[op] += 1
     COLLECTIVES["bytes"] += int(nbytes)
     COLLECTIVES["host_staged"] += int(staged)
+    profiling.count("par.collective_bytes", int(nbytes))
 
 
 def psum(mesh, t: torch.Tensor, dim: str = MP_AXIS) -> torch.Tensor:
@@ -132,10 +180,11 @@ def psum(mesh, t: torch.Tensor, dim: str = MP_AXIS) -> torch.Tensor:
     mesh dimension, on every one of them (a new tensor)."""
     group = mesh.get_group(dim)
     staged = _staged("all_reduce", t, group)
-    buf = t.detach().to("cpu" if staged else t.device, copy=True)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    _count("all_reduce", buf.numel() * buf.element_size(), staged)
-    return buf.to(t.device)
+    with profiling.span("par.comm", device=t.is_cuda):
+        buf = t.detach().to("cpu" if staged else t.device, copy=True)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        _count("all_reduce", buf.numel() * buf.element_size(), staged)
+        return buf.to(t.device)
 
 
 def broadcast(mesh, t: torch.Tensor, src: int,
@@ -146,10 +195,12 @@ def broadcast(mesh, t: torch.Tensor, src: int,
     to which every other rank adds zeros: the same values."""
     group = mesh.get_group(dim)
     staged = _staged("broadcast", t, group)
-    buf = t.detach().to("cpu" if staged else t.device, copy=True)
-    dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
-    _count("broadcast", buf.numel() * buf.element_size(), staged)
-    return buf.to(t.device)
+    with profiling.span("par.comm", device=t.is_cuda):
+        buf = t.detach().to("cpu" if staged else t.device, copy=True)
+        dist.broadcast(buf, src=dist.get_global_rank(group, src),
+                       group=group)
+        _count("broadcast", buf.numel() * buf.element_size(), staged)
+        return buf.to(t.device)
 
 
 def all_gather(mesh, t: torch.Tensor, dim: str = MP_AXIS,
@@ -159,12 +210,13 @@ def all_gather(mesh, t: torch.Tensor, dim: str = MP_AXIS,
     sharded output made whole on every rank."""
     group = mesh.get_group(dim)
     staged = _staged("all_gather", t, group)
-    buf = t.detach().to("cpu" if staged else t.device).contiguous()
-    parts = [torch.empty_like(buf) for _ in range(axis_size(mesh, dim))]
-    dist.all_gather(parts, buf, group=group)
-    _count("all_gather", buf.numel() * buf.element_size() * len(parts),
-           staged)
-    return torch.cat(parts, dim=axis).to(t.device)
+    with profiling.span("par.comm", device=t.is_cuda):
+        buf = t.detach().to("cpu" if staged else t.device).contiguous()
+        parts = [torch.empty_like(buf) for _ in range(axis_size(mesh, dim))]
+        dist.all_gather(parts, buf, group=group)
+        _count("all_gather", buf.numel() * buf.element_size() * len(parts),
+               staged)
+        return torch.cat(parts, dim=axis).to(t.device)
 
 
 def gather_lanes(mesh, st: dict, dim: str = DP_AXIS) -> dict:
@@ -173,6 +225,8 @@ def gather_lanes(mesh, st: dict, dim: str = DP_AXIS) -> dict:
     (``all_gather_object``): an ensemble sharded over dp made whole on
     every rank."""
     parts = [None] * axis_size(mesh, dim)
-    dist.all_gather_object(parts, st, group=mesh.get_group(dim))
-    _count("gather_objects", sum(len(pickle.dumps(p)) for p in parts), False)
+    with profiling.span("par.comm"):
+        dist.all_gather_object(parts, st, group=mesh.get_group(dim))
+        _count("gather_objects", sum(len(pickle.dumps(p)) for p in parts),
+               False)
     return {k: np.concatenate([p[k] for p in parts]) for k in st}

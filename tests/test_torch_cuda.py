@@ -1415,3 +1415,99 @@ def test_sharded_grad_c5_inputs(nccl_mesh, dev, case):
                             "rbf")
     assert _worst_component((g.log_variances, g.log_lengthscales,
                              g.log_noises), ref) <= 2e-3
+
+
+# the fully sharded NLML across four GPUs, as the nlml_sharded_n80k_4chip
+# cell runs it, at a size the test holds: 2 x 2 tiles of 2,000 points
+FOUR_GPU_N = 8000
+
+
+def _four_gpu_rank(rank, port, tmp):
+    """One of four NCCL ranks started as ``torchrun`` would: the launcher's
+    environment, ``parallel.init_ranks``, the fully sharded NLML at the
+    default panel width; its value, gradient, device and collectives
+    saved to ``tmp``."""
+    import os
+
+    import torch.distributed as dist
+
+    from benchmark.common import tiles
+    from mfgp_tpu_torch import parallel as par
+    from mfgp_tpu_torch.parallel import mesh as pm
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="4", LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dev = par.init_ranks(timeout_s=120.0)
+    try:
+        X, fid, y = tiles.build_tiles(_four_gpu_config(), 7)
+        X, y = (torch.as_tensor(a, device=dev) for a in (X, y))
+        fid = torch.as_tensor(fid, device=dev)
+        p = tm.params_from_numpy(*_four_gpu_theta(), dev, torch.float32)
+        pm.reset_collectives()
+        v, g = par.make_fully_sharded_nlml_value_and_grad(
+            par.make_mesh(mp=4), FOUR_GPU_N)(p, X, fid, y)
+        torch.save(dict(v=float(v), g=[a.double().cpu() for a in g],
+                        device=str(X.device),
+                        collectives=dict(pm.COLLECTIVES)),
+                   f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _four_gpu_config():
+    return dict(N=FOUR_GPU_N, D=3, tiles=[2, 2], tile_shift=[60.0, 110.0])
+
+
+def _four_gpu_theta():
+    return (np.log([25.0, 10.0, 5.0]),
+            np.log(np.tile([12.0, 20.0, 1.5], (3, 1))), np.ones(2),
+            np.log([0.5, 0.2, 0.1]))
+
+
+def test_fully_sharded_nlml_on_four_gpus(dev, tmp_path):
+    """Four NCCL ranks, one per GPU through ``init_ranks``: each rank's
+    tensors on its own card, the value and gradient within the
+    ``nlml_sharded_n80k_4chip`` cell's limits of the float64 reference,
+    every collective on the cards (none staged through the host)."""
+    import json
+    import socket
+    import time
+    from pathlib import Path
+
+    import torch.multiprocessing as mproc
+
+    from benchmark.common import tiles
+    from benchmark.reference import gp as ref
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mproc.start_processes(_four_gpu_rank, args=(port, str(tmp_path)),
+                                 nprocs=4, join=False, start_method="spawn")
+    X, fid, y = (torch.as_tensor(a, device=dev)
+                 for a in tiles.build_tiles(_four_gpu_config(), 7))
+    lv, ll, rho, ln = _four_gpu_theta()
+    r = ref.nlml_grad(X, fid, y, dict(variances=np.exp(lv),
+                                      lengthscales=np.exp(ll), rhos=rho,
+                                      noises=np.exp(ln)), "rbf", 0.0)
+    v_ref, g_ref = float(r["value"]), ref.grad_vector(r).cpu()
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=5.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail("four-GPU ranks still running after 300 s")
+    root = Path(__file__).resolve().parents[1]
+    limits = json.loads((root / "benchmark/traffic/"
+                         "fit_eval_sharded_closed.json").read_text())["limits"]
+    for rank in range(4):
+        out = torch.load(tmp_path / f"rank{rank}.pt")
+        assert out["device"] == f"cuda:{rank}"
+        g = torch.cat([out["g"][0], out["g"][1].reshape(-1), out["g"][3]])
+        assert abs(out["v"] - v_ref) / abs(v_ref) <= limits["nlml_rel"]
+        assert (float(torch.max(torch.abs(g - g_ref)))
+                / float(torch.max(torch.abs(g_ref)))) <= limits["grad_rel"]
+        assert out["collectives"]["host_staged"] == 0
+        assert out["collectives"]["broadcast"] > 0

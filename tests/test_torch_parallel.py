@@ -215,8 +215,34 @@ def _work(rank, inp):
         m4, 64, block=16, jitter=1e-6)(p, f32[0], torch.as_tensor(
             inp["fs_fid"]), f32[1])
     out["fit_memory_scaled"] = ([_np(a) for a in p], hist, float(val))
+    out["default_panel"] = _default_panel_work(m14, inp)
     _ensemble_work(m4, out)
     return out
+
+
+def _default_panel_work(mesh, inp):
+    """The fully sharded NLML at N=1,000 over mp=4 at the default panel
+    width, with the recorder on: the value, the gradient, the span records
+    (name, id, parent) and the collectives' bytes, counted both ways."""
+    from mfgp_tpu_torch import parallel as par
+    from mfgp_tpu_torch.parallel import mesh as pm
+    from mfgp_tpu_torch.utils import profiling
+
+    X, fid, y = (torch.as_tensor(inp[f"dp_{k}"]) for k in ("X", "fid", "y"))
+    f = par.make_fully_sharded_nlml_value_and_grad(mesh, X.shape[0])
+    pm.reset_collectives()
+    profiling.reset()
+    profiling.enable()
+    try:
+        v, g = f(_mf_params(inp, "dp"), X, fid, y)
+    finally:
+        profiling.enable(False)
+    recs = [(r["name"], r["id"], r["parent"])
+            for r in profiling.RECORDER.records()]
+    counted = profiling.snapshot()["counters"].get("par.collective_bytes")
+    profiling.reset()
+    return dict(vg=(float(v), [_np(a) for a in g]), records=recs,
+                counted=counted, bytes=pm.COLLECTIVES["bytes"])
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +316,28 @@ def _inputs() -> dict:
         A = rng.normal(size=(n, n))
         inp[f"K{n}"] = A @ A.T + n * np.eye(n)
     inp["B128"] = rng.normal(size=(128, 128))
+    inp["dp_X"] = rng.uniform(0, 1, (1000, D)) * [30.0, 55.0, 4.5]
+    inp["dp_fid"] = rng.integers(0, 3, 1000)
+    inp["dp_y"] = np.sin(inp["dp_X"][:, 0] / 7) + 0.1 * rng.normal(size=1000)
+    inp.update(_mf_leaves("dp", [25.0, 10.0, 5.0], [[12.0, 20.0, 1.5]] * 3,
+                          [1.0, 1.0], [0.5, 0.2, 0.1]))
     return inp
+
+
+def _plain_default_panel(inp):
+    """The plain float64 reference (``benchmark/reference/gp.nlml_grad``)
+    of ``_default_panel_work``'s NLML: (value, [g_logvar, g_logls,
+    g_lognoise])."""
+    from benchmark.reference import gp as ref
+
+    th = dict(variances=np.exp(inp["dp_lv"]),
+              lengthscales=np.exp(inp["dp_ll"]), rhos=inp["dp_rho"],
+              noises=np.exp(inp["dp_ln"]))
+    r = ref.nlml_grad(torch.as_tensor(inp["dp_X"]),
+                      torch.as_tensor(inp["dp_fid"]),
+                      torch.as_tensor(inp["dp_y"]), th, "rbf", 0.0)
+    return float(r["value"]), [_np(r[k]) for k in ("g_logvar", "g_logls",
+                                                   "g_lognoise")]
 
 
 def _jax_side(inp) -> dict:
@@ -393,6 +440,7 @@ def runs(tmp_path_factory):
         try:
             ref = _jax_side(inp)
             solo = _solo(_sim_exp())
+            solo["default_panel"] = _plain_default_panel(inp)
         finally:
             ranks = join_ranks(ctx, tmp)
     finally:
@@ -545,6 +593,117 @@ def test_panel_utilization_and_permutation_match_jax(runs):
     for (n, m, b), perm in ref["perm"].items():
         np.testing.assert_array_equal(cyclic_permutation(n, m, b), perm)
     assert sorted(cyclic_permutation(64, 2, 8).tolist()) == list(range(64))
+
+
+def test_fully_sharded_default_panel_matches_plain_reference(runs):
+    """At N=1,000 over mp=4 with no panel width given (250, from the
+    shard), the fully sharded NLML and gradient equal the plain float64
+    reference to 1e-10 on every rank."""
+    ranks, _, solo, _ = runs
+    v_ref, g_ref = solo["default_panel"]
+    scale = max(np.max(np.abs(g)) for g in g_ref)
+    for r in ranks:
+        v, g = r["default_panel"]["vg"]
+        assert abs(v - v_ref) <= 1e-10 * abs(v_ref)
+        for got, want in zip((g[0], g[1], g[3]), g_ref):
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * scale)
+        assert not np.any(g[2])  # rhos held fixed
+
+
+def test_fully_sharded_spans_and_collective_bytes(runs):
+    """With the recorder on, one call records one ``par.nlml`` on every
+    rank, with ``par.gram``, ``par.chol``, ``par.trisolve``, ``par.grad``
+    and every ``par.comm`` inside it, and the recorder's
+    ``par.collective_bytes`` equals ``COLLECTIVES["bytes"]``."""
+    ranks, *_ = runs
+    for r in ranks:
+        dp = r["default_panel"]
+        names = [name for name, _, _ in dp["records"]]
+        assert names.count("par.nlml") == 1
+        for stage in ("par.gram", "par.chol", "par.trisolve", "par.grad"):
+            assert names.count(stage) == 1, stage
+        assert names.count("par.comm") > 3 * 4  # every panel's broadcast
+        by_id = {i: (name, parent) for name, i, parent in dp["records"]}
+        for name, _, parent in dp["records"]:
+            if name == "par.nlml":
+                continue
+            while by_id[parent][0] != "par.nlml":
+                parent = by_id[parent][1]
+        assert dp["counted"] == dp["bytes"] > 0
+
+
+@pytest.mark.parametrize("n", [80_000, 20_000, 1_000])
+def test_panel_width_from_the_shard(n):
+    from mfgp_tpu_torch.parallel import panel_width
+
+    assert panel_width(n, 4) == 250
+
+
+def test_panel_width_raises():
+    """Under 32 the default raises and names the nearest n that works; an
+    explicit width that does not divide the shard raises as before."""
+    from mfgp_tpu_torch.parallel import panel_width
+
+    with pytest.raises(ValueError, match="nearest n that works is 3984"):
+        panel_width(3988, 4)
+    with pytest.raises(ValueError, match="nearest n that works is 128"):
+        panel_width(8, 4)
+    assert panel_width(3984, 4) == 249
+    with pytest.raises(ValueError,
+                       match="column block 20000 not divisible by panel 256"):
+        panel_width(80_000, 4, 256)
+    with pytest.raises(ValueError, match="not divisible by mp=4"):
+        panel_width(1002, 4)
+
+
+def test_init_ranks_binds_local_rank(monkeypatch):
+    """``init_ranks`` reads torchrun's environment, binds ``cuda:LOCAL_RANK``
+    before the group is made, and makes the group bound to that device with
+    a finite timeout; without that environment it raises."""
+    from mfgp_tpu_torch.parallel import init_ranks
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: calls.append(("set_device", d)))
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda *a, **k: calls.append(("init", a, k)))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        init_ranks()
+    monkeypatch.setenv("RANK", "6")
+    monkeypatch.setenv("WORLD_SIZE", "8")
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    dev = init_ranks(timeout_s=90.0)
+    assert dev == torch.device("cuda", 2)
+    assert calls == [("set_device", dev), ("init", ("nccl",), dict(
+        init_method="env://", rank=6, world_size=8,
+        timeout=timedelta(seconds=90.0), device_id=dev))]
+
+
+def test_init_ranks_joins_a_gloo_group(monkeypatch):
+    """A real gloo group of one rank through the launcher's environment:
+    the rank's device is the CPU and ``make_mesh`` runs on the group."""
+    import socket
+
+    from mfgp_tpu_torch.parallel import init_ranks, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    try:
+        assert init_ranks("gloo", timeout_s=30.0) == torch.device("cpu")
+        assert dist.get_world_size() == 1
+        assert tuple(make_mesh(device="cpu").shape) == (1, 1)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_fit_memory_scaled_converges(runs):
