@@ -12,20 +12,28 @@
    the TF32 planes (``tf32_split`` and B1's) against the plain split bit
    for bit. B1 also: its symmetric half grid against the full grid bit for
    bit, and 420 ragged shapes per base against float64 (``b1_checks``).
+   ``tri_gemm`` (the triangular inverse's two per-level products) against
+   its plain version in float64 on the same float32 inputs, both k-range
+   rules and both outputs, at the unit's level shapes (10,000 to 1,250,
+   the nodes of a level in one launch) and at ragged ones, within four
+   times the plain float32 products' own error (``tri_gemm_checks``).
    The build phase reports B1's registers and spills.
 4. Unit: the benchmark unit of ``bench.py`` at full size (N=20,000
    training points, the M=10,571-point grid, F=3, D=3, float32) for rbf and
    matern32: ``nlml_value_grad_state_inv(inv_mode="highest")`` then
    ``predict_fused``. The NLML is held against the recorded float64 NumPy
    values, the gradient against the plain float64 path (every entry, and
-   the rbf g_logvar normwise), and the launch counters show that all three
-   kernels ran.
+   the rbf g_logvar normwise), and the launch counters show that every
+   kernel ran.
 5. Times: the unit's wall time and phases, each kernel beside its plain
    version at the unit's shapes, B2's and B3's achieved TFLOP/s, and the
    TF32 split passes, on CUDA events; B1 at each of its main-path launch
    shapes (the unit's Gram, B3's S^T planes, the GP's F=1 Gram) with its
    bound and share of it; the unit's TF32 planes (Linv, Linv^T, B1's S^T)
-   against the plain split bit for bit.
+   against the plain split bit for bit; ``tri_gemm``'s ten launches of one
+   Linv, replayed as the unit made them, beside its plain version at the
+   same operands (bound: N^3/3 float32-equivalent flop at the 3xTF32
+   rate).
 6. Fit: the fit paths. First three checks at a small size: the autodiff
    NLML gradient in float32 on the card (through B1's autograd Function,
    rhos included, N=2,000, both bases) against float64, the Function's
@@ -284,6 +292,20 @@
    1e-6). Prints seconds per function, B1 launches per call, collectives
    and their bytes, what gloo staged through the host, peak memory per
    rank and the card's name and power limit.
+17. Triangular inverse: Linv of the unit's float32 rbf factor (``bench.py``'s
+   problem and hyperparameters) at N = 705, 1,250, 3,001, 5,000 and
+   20,000, by ``tri_inv_recursive`` (the tensor-core route above 1,024)
+   and by its strips (``linalg._tri_inv_strips``): the median of eight
+   CUDA-event times each, the routes in turns, the normwise error against the float64 inverse
+   of the same factor and max |L Linv - I|, both held to twice the strips'
+   (plus 2^-22), the result row-major and ``linalg.tri_inv_tc`` counted
+   once a call above 1,024. Then one tensor-core Linv at N=20,000 under
+   ``torch.profiler`` (device ms per kernel name and per ``tri_gemm``
+   launch), and B2 on the unit's Linv by either route, each time just
+   after a Linv by either route, with and without
+   ``torch.cuda.empty_cache()`` between the two, in turns (whether B2's
+   time follows its data, or what ran before it: the caching allocator's
+   state, the card's clock).
 
 Every phase prints one JSON line (the fit phase one per part). A failed
 build or launch raises; a failed check is reported and the script exits 1
@@ -292,9 +314,9 @@ after the last phase. The last line, on success only, is
 It needs a CUDA device and the repository around it; without either it
 exits non-zero and prints no result.
 
-    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore,device_planner,mission,serve,parallel
+    python3 chip_smoke.py --only study,study_f64,study_batched,nigp,recursive,planner,explore,device_planner,mission,serve,parallel,tri_inv
 
-runs the build and only the named phases of 7 to 16 (while working on
+runs the build and only the named phases of 7 to 17 (while working on
 them; ``study_batched`` runs ``study`` first, whose dataset it is held
 to); it prints no result line.
 
@@ -338,6 +360,10 @@ KERNELS = (
     # HIGHEST-precision products split their operands inside the dot)
     ("tf32_split", "mfgp_tpu_torch/ops/csrc/tf32_split.cu",
      "mfgp_tpu/ops/pallas_kernels.py:486"),
+    # the triangular inverse's two per-level products (no Pallas kernel:
+    # the JAX package leaves them to XLA's products)
+    ("tri_gemm", "mfgp_tpu_torch/ops/csrc/tri_gemm.cu",
+     "none (XLA's products in tri_inv_recursive)"),
 )
 BASES = ("rbf", "matern32")
 FAILURES: list[str] = []
@@ -462,6 +488,73 @@ def b2_check(torch, ck, mf, dev, kern, N, F):
     return e
 
 
+# (Z, M, N, K) of tri_gemm's checks: the unit's levels (N=20,000; a
+# level's Z nodes of one size in one launch, M = N = K = half a node), and
+# shapes ragged against the 128-wide tiles and 32-deep stages
+TRI_GEMM_CHECKS = ((1, 10000, 10000, 10000), (2, 5000, 5000, 5000),
+                   (4, 2500, 2500, 2500), (8, 1250, 1250, 1250),
+                   (3, 353, 352, 352), (1, 300, 261, 288),
+                   (1, 261, 300, 256), (1, 130, 1, 261), (1, 1, 129, 129))
+
+
+def tri_gemm_checks(torch, ck, dev) -> float:
+    """Phase 3, ``tri_gemm``: Z products ``-A_z B_z^T`` of random float32
+    operands in one launch against ``tri_gemm_plain`` evaluated in float64
+    on the same inputs, for both k-range rules, B given as the triangular
+    inverse gives it (``right``: column-major views, as Ai^T; ``left``:
+    stacked TF32 planes, as B Ai's), into both outputs (strided views of
+    one larger matrix, nothing around them written; the TF32 planes of the
+    transposes). Each product is held normwise (max |x - ref| / max |ref|)
+    to four times the error of the plain version's own float32 products on
+    the card, or 2^-22. Returns the max abs error."""
+    f64 = torch.float64
+    g = torch.Generator(device=dev).manual_seed(18)
+    worst = 0.0
+    for Z, M, N, K in TRI_GEMM_CHECKS:
+        As = [torch.randn(M, K, device=dev, generator=g) for _ in range(Z)]
+        Bs = [torch.randn(K, N, device=dev, generator=g).T for _ in range(Z)]
+        for tri in ("left", "right"):
+            # stacked planes as tri_gemm returns them (rows padded to 32
+            # floats: the engine's TMA maps take 16-byte row strides)
+            B = (ck.tf32_split(torch.cat([b.contiguous() for b in Bs]))
+                 if tri == "left" else Bs)
+            ref = ck.tri_gemm_plain(
+                [a.double() for a in As], [b.double() for b in Bs], tri,
+                -1.0, out=[torch.empty(M, N, dtype=f64, device=dev)
+                           for _ in range(Z)])
+            plain = ck.tri_gemm_plain(
+                As, Bs, tri, -1.0,
+                out=[torch.empty(M, N, device=dev) for _ in range(Z)])
+            big = torch.full((Z * M + 2, N + 3), 7.0, device=dev)
+            outs = [big[1 + z * M:1 + (z + 1) * M, 2:N + 2] for z in range(Z)]
+            ck.tri_gemm(As, B, tri, -1.0, out=outs)
+            hi, lo = ck.tri_gemm(As, B, tri, -1.0)
+            planes = [x.T for x in torch.chunk(hi.double() + lo.double(), Z)]
+            torch.cuda.synchronize()
+            rest = big.clone()
+            rest[1:Z * M + 1, 2:N + 2] = 7.0
+            untouched = bool((rest == 7.0).all())
+            del rest
+
+            def normwise(xs):
+                return [max_err(x, r) / max(float(r.abs().max()), 1e-300)
+                        for x, r in zip(xs, ref)]
+
+            e_plain = normwise(plain)
+            for label, got in (("out", outs), ("planes", planes)):
+                e = normwise(got)
+                ok = all(a <= max(4 * b, 2.0 ** -22)
+                         for a, b in zip(e, e_plain))
+                worst = max(worst, *(max_err(x, r) for x, r in zip(got, ref)))
+                check(f"tri_gemm {tri} {label} Z={Z} ({M}, {N}, {K})",
+                      ok and (untouched or label == "planes"),
+                      f"normwise err {max(e):.3e} (<= 4 x plain f32 "
+                      f"{max(e_plain):.3e}, or 2^-22)"
+                      + ("" if untouched else "; wrote outside its views"))
+            del ref, plain, big, outs, hi, lo, planes
+    return worst
+
+
 def kernel_checks(torch, ck, mf, dev):
     """Phase 3: each kernel against its plain version (float64 reference
     on the same inputs) at small ragged shapes; returns the max abs error
@@ -537,6 +630,7 @@ def kernel_checks(torch, ck, mf, dev):
                             lambda r0, r1: ck.tf32_split_plain(K[r0:r1]))
         check(f"B1 {kern} TF32 planes {tuple(K.shape)}", same,
               "bit-identical to tf32_split_plain of B1's output")
+    errs["tri_gemm"] = tri_gemm_checks(torch, ck, dev)
     emit("kernels", max_abs_err=errs)
     return errs
 
@@ -1025,6 +1119,53 @@ def unit_walls(torch, mf, problem, kern: str, reps: int = 3) -> list:
     return walls
 
 
+def recorded_tri_gemm(ck, la, L):
+    """``tri_inv_recursive(L)`` with every ``tri_gemm`` call it makes
+    recorded as (args, kwargs): the calls, in order, and the inverse they
+    wrote into."""
+    calls, real = [], ck.tri_gemm
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    ck.tri_gemm = record
+    try:
+        Linv = la.tri_inv_recursive(L)
+    finally:
+        ck.tri_gemm = real
+    return calls, Linv
+
+
+def tri_gemm_times(torch, ck, la, L) -> dict:
+    """Phase 5, ``tri_gemm`` at the unit's shapes: the launches of one
+    Linv of the unit's factor L, replayed with the operands and outputs the
+    unit gave them (their TF32 splits of float32 operands included, as the
+    other kernels' wrapper passes are), beside ``tri_gemm_plain``'s float32
+    products of the same operands, in turns; and the whole Linv by the
+    tensor-core route beside its strips."""
+    calls, Linv = recorded_tri_gemm(ck, la, L)
+
+    def replay(fn):
+        for args, kwargs in calls:
+            fn(*args, **kwargs)
+
+    p1 = cuda_ms(torch, lambda: replay(ck.tri_gemm_plain), reps=1)
+    k1 = cuda_ms(torch, lambda: replay(ck.tri_gemm))
+    k2 = cuda_ms(torch, lambda: replay(ck.tri_gemm))
+    p2 = cuda_ms(torch, lambda: replay(ck.tri_gemm_plain), reps=1)
+    launches = len(calls)
+    del calls, Linv
+    s1 = cuda_ms(torch, lambda: la._tri_inv_strips(L, 1024), reps=1)
+    t1 = cuda_ms(torch, lambda: la.tri_inv_recursive(L), reps=1)
+    t2 = cuda_ms(torch, lambda: la.tri_inv_recursive(L), reps=1)
+    s2 = cuda_ms(torch, lambda: la._tri_inv_strips(L, 1024), reps=1)
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+            "launches_per_linv": launches,
+            "linv_ms_runs": [t1, t2], "strips_ms_runs": [s1, s2]}
+
+
 def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
     """Phase 5: wall time of the unit, its phases, and each kernel beside
     its plain version at the unit's shapes (CUDA events)."""
@@ -1046,7 +1187,6 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
     z = la.tri_lower_matmul(Linv, yt[:, None])
     alpha = la.tri_lower_matmul_right(z.reshape(1, -1), Linv).reshape(-1)
     la.logdet_from_chol(L)
-    del L
     ev[4].record()
     ck.syrk_grad_fused(Linv, alpha, Xt, ft, v, ls, rho, nz, kern=kern)
     ev[5].record()
@@ -1057,6 +1197,8 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
              "posterior")
     phases = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
     del Linv, alpha, z
+    tri = tri_gemm_times(torch, ck, la, L)
+    del L
 
     noise = nz[ft] + 1e-6
     S, a = state.Linv, state.alpha
@@ -1086,8 +1228,10 @@ def unit_times(torch, ck, mf, la, cov, problem, kern: str, state):
     # multiply-add the algorithm needs: N^3/6 for B2's K^-1 tiles, N^2 M / 2
     # for B3's V), wrapper passes included
     N, M = Xt.shape[0], gt.shape[0]
+    kernel_ms["tri_gemm"] = tri
     for name, flop in (("syrk_grad_fused", N ** 3 / 3),
-                       ("posterior_fused", N * N * M)):
+                       ("posterior_fused", N * N * M),
+                       ("tri_gemm", N ** 3 / 3)):
         kernel_ms[name]["tflops"] = flop / kernel_ms[name]["ms"] / 1e9
     # the TF32 split passes inside B3 (Linv) and B2 (Linv^T), and B1's
     # staging of S^T = K(grid, train) as planes inside B3
@@ -5873,13 +6017,174 @@ def parallel_phase(torch, ck, cov, dev) -> dict:
     return launches
 
 
+TRI_INV_SIZES = (705, 1250, 3001, 5000, 20000)
+
+
+def event_ms(torch, fn):
+    """Milliseconds of one call of ``fn`` on CUDA events (no warm-up),
+    and what it returned."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), out
+
+
+def tri_inv_linv(torch, la, L, N: int) -> dict:
+    """Phase 17 at one N: both routes of Linv timed (a warm-up each, then
+    eight calls each in turns, the order reversed every other round) and
+    held against the float64 inverse of L."""
+    from mfgp_tpu_torch.utils import profiling
+
+    f64 = torch.float64
+    L64 = L.double()
+    eye = torch.eye(N, dtype=f64, device=L.device)
+    ref = torch.linalg.solve_triangular(L64, eye, upper=False)
+    routes = {"tc": lambda: la.tri_inv_recursive(L),
+              "strips": lambda: la._tri_inv_strips(L, 1024)}
+    ms = {name: [] for name in routes}
+    for fn in routes.values():
+        fn()
+    for k in range(8):
+        for name in (("tc", "strips") if k % 2 else ("strips", "tc")):
+            ms[name].append(event_ms(torch, routes[name])[0])
+    out = {}
+    for name, fn in routes.items():
+        profiling.enable()
+        profiling.reset()
+        try:
+            Linv = fn()
+            snap = profiling.snapshot()
+        finally:
+            profiling.enable(False)
+            profiling.reset()
+        x = Linv.double()
+        out[name] = {
+            "ms": float(np.median(ms[name])), "ms_runs": ms[name],
+            "err": float((x - ref).abs().max() / ref.abs().max()),
+            "resid": float((L64 @ x - eye).abs().max()),
+            "row_major": bool(Linv.is_contiguous()),
+            "upper_zero": bool((torch.triu(Linv, 1) == 0).all()),
+            "spans": snap["spans"].get("linalg.tri_inv", {}).get("calls", 0),
+            "tc_count": snap["counters"].get("linalg.tri_inv_tc", 0)}
+        del Linv, x
+    tc, st = out["tc"], out["strips"]
+    check(f"tri_inv N={N} vs float64",
+          tc["err"] <= 2 * st["err"] + 2.0 ** -22
+          and tc["resid"] <= 2 * st["resid"] + 2.0 ** -22,
+          f"normwise err {tc['err']:.3e}, max |L Linv - I| {tc['resid']:.3e} "
+          f"(<= twice the strips' {st['err']:.3e}, {st['resid']:.3e}, "
+          "+ 2^-22)")
+    check(f"tri_inv N={N} route",
+          tc["row_major"] and tc["upper_zero"] and tc["spans"] == 1
+          and tc["tc_count"] == int(N > 1024) and st["tc_count"] == 0,
+          f"row-major {tc['row_major']}, zero above the diagonal "
+          f"{tc['upper_zero']}, linalg.tri_inv spans {tc['spans']}, "
+          f"linalg.tri_inv_tc {tc['tc_count']} (strips {st['tc_count']})")
+    return out
+
+
+def tri_inv_profile(torch, la, L) -> dict:
+    """One tensor-core Linv of L (after a warm-up) under ``torch.profiler``:
+    device ms per kernel name, and each ``tri_gemm`` launch's ms in launch
+    order (per level, from the bottom)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    la.tri_inv_recursive(L)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        la.tri_inv_recursive(L)
+        torch.cuda.synchronize()
+    by_name, launches = {}, []
+    for e in prof.events():
+        t = getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
+        if not t or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + t / 1e3
+        if "tri_gemm_kernel" in e.name:
+            launches.append(t / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
+    return {"total_ms": sum(by_name.values()), "kernels_ms": top,
+            "tri_gemm_ms": launches, "tri_gemm_sum_ms": sum(launches),
+            "note": None if by_name else
+            "torch.profiler reported no device time: not measured"}
+
+
+def b2_after_linv(torch, ck, la, cov, problem) -> dict:
+    """B2 on the unit's Linv made by either route (B2's data), each time
+    just after another Linv by either route and alpha's products, as an
+    evaluation runs them (what ran before B2: the caching allocator's
+    state and the card's clock after it), with and without
+    ``torch.cuda.empty_cache()`` between the two: the eight cases in turns,
+    four rounds after an untimed one (the order reversed every other), one
+    CUDA-event time each."""
+    Xt, ft, yt, _, _, p = problem
+    v, ls, rho, nz = p.variances, p.lengthscales, p.rhos, p.noises
+    L = la.chol(cov.mf_train_cov(v, ls, rho, nz, Xt, ft, 1e-6, "rbf"))
+    routes = {"strips": lambda: la._tri_inv_strips(L, 1024),
+              "tc": lambda: la.tri_inv_recursive(L)}
+
+    def linv_alpha(route):
+        Linv = routes[route]()
+        z = la.tri_lower_matmul(Linv, yt[:, None])
+        return Linv, la.tri_lower_matmul_right(z.reshape(1, -1),
+                                               Linv).reshape(-1)
+
+    data = {r: linv_alpha(r) for r in routes}
+    cases = [(d, b, e) for e in (False, True) for b in routes for d in routes]
+
+    def key(d, b, e):
+        return f"data={d},after={b}" + (",empty_cache" if e else "")
+
+    ms = {key(*c): [] for c in cases}
+    for k in range(5):  # the first round warms every path up, untimed
+        for d, b, e in (cases if k % 2 else cases[::-1]):
+            linv_alpha(b)
+            if e:
+                torch.cuda.empty_cache()
+            t, _ = event_ms(torch, lambda: ck.syrk_grad_fused(
+                *data[d], Xt, ft, v, ls, rho, nz, "rbf"))
+            if k:
+                ms[key(d, b, e)].append(t)
+    return {"ms_runs": ms,
+            "median_ms": {c: float(np.median(t)) for c, t in ms.items()}}
+
+
+def tri_inv_phase(torch, ck, cov, dev, problem) -> dict:
+    """Phase 17 (see the module docstring); returns its launches, counted
+    from 0."""
+    from bench import _theta, build_problem
+    from mfgp_tpu_torch.ops import linalg as la
+
+    v, ls, rho, nz = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in _theta())
+    ck.reset_launches()
+    for N in TRI_INV_SIZES:
+        X, fid, _, _, _ = build_problem(N, 1, seed=0)
+        X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+        fid = torch.as_tensor(fid, dtype=torch.long, device=dev)
+        L = la.chol(cov.mf_train_cov(v, ls, rho, nz, X, fid, 1e-6, "rbf"))
+        emit("tri_inv", part="linv", N=N, **tri_inv_linv(torch, la, L, N))
+        if N == TRI_INV_SIZES[-1]:
+            emit("tri_inv", part="profile", N=N,
+                 **tri_inv_profile(torch, la, L))
+        del L
+        torch.cuda.empty_cache()
+    emit("tri_inv", part="b2_after_linv", nvidia_smi=nvidia_smi(),
+         **b2_after_linv(torch, ck, la, cov, problem))
+    return dict(ck.LAUNCHES)
+
+
 NEW_PHASES = ("study", "study_f64", "study_batched", "nigp", "recursive",
               "planner", "explore", "device_planner", "mission", "serve",
-              "parallel")
+              "parallel", "tri_inv")
 
 
 def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
-    """Phases 7 to 16 in turn (the batched study, 10, after the study's
+    """Phases 7 to 17 in turn (the batched study, 10, after the study's
     phases, whose dataset it compares with); returns each path's launches
     by phase."""
     launches = {}
@@ -5921,11 +6226,14 @@ def study_path_phases(torch, ck, cov, dev, problem, only=NEW_PHASES) -> dict:
     torch.cuda.empty_cache()
     if "parallel" in only:
         launches["parallel"] = parallel_phase(torch, ck, cov, dev)
+    torch.cuda.empty_cache()
+    if "tri_inv" in only:
+        launches["tri_inv"] = tri_inv_phase(torch, ck, cov, dev, problem)
     return launches
 
 
 def only_phases(names) -> int:
-    """``--only``: the build and the named phases of 7 to 16; no result
+    """``--only``: the build and the named phases of 7 to 17; no result
     line."""
     import torch
 
@@ -5947,7 +6255,7 @@ def only_phases(names) -> int:
     build.build()
     build.load_library()
     problem = (make_problem(torch, mf, dev)
-               if {"nigp", "recursive"} & set(names) else None)
+               if {"nigp", "recursive", "tri_inv"} & set(names) else None)
     emit("only", launches=study_path_phases(torch, ck, cov, dev, problem,
                                             names))
     for f in FAILURES:
@@ -6038,7 +6346,8 @@ def main(argv) -> int:
               "posterior_fused": (N * N * M / TF32X3_FLOPS * 1e3,
                                   "operations"),
               "tf32_split": (times["rbf"]["tf32_split"]["bound_ms"],
-                             times["rbf"]["tf32_split"]["bound_by"])}
+                             times["rbf"]["tf32_split"]["bound_by"]),
+              "tri_gemm": (N ** 3 / 3 / TF32X3_FLOPS * 1e3, "operations")}
     print(nvidia_smi(), flush=True)
     # no single PyTorch call computes any of these functions, so no library
     # time (library_ms null); "launches" is the unit's count, the other

@@ -29,6 +29,7 @@ LIB_NAME = "libmfgp_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: name -> argument types; every one returns cudaError_t as int
 _SIGNATURES = {
     # A, wA, B, wB, ils, noise, out, lo, ldo, L, N, M, F, D, kern, sym,
@@ -44,6 +45,10 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _P],
     # Linv hi, lo, ldl, S^T hi, lo, lds, alpha, N, Mb, mu, quad, stream
     "mfgp_posterior_f32": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P],
+    # A hi, lo, lda, B hi, lo, ldb, Z, M, N, K, left, alpha, out, ldo, the
+    # Z output offsets (host array), C^T hi, lo, ldp, stream
+    "mfgp_tri_gemm_f32": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                          _P, _LL, _P, _P, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

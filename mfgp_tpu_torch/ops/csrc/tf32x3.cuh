@@ -1,5 +1,6 @@
-// The tensor-core engine that B2 (syrk_grad.cu) and B3 (posterior.cu) share:
-// one 128 x 128 fp32 tile C = A B^T over a range of k, in 3xTF32.
+// The tensor-core engine that B2 (syrk_grad.cu), B3 (posterior.cu) and the
+// triangular inverse's strip products (tri_gemm.cu) share: one 128 x 128
+// fp32 tile C = A B^T over a range of k, in 3xTF32.
 //
 // Operands. A and B arrive pre-split in device memory as TF32 planes, each
 // K-major (row-major with k contiguous) with a row stride that is a multiple
@@ -10,8 +11,9 @@
 //
 // with the two small cross terms issued before hi*hi. wgmma's .tf32 form has
 // no transpose flags (the PTX ISA gives them to f16/bf16 only), so both
-// operands must be K-major in shared memory; that is why B3 stages S^T and
-// B2 reads Linv^T. Pre-splitting costs one read and two writes of each
+// operands must be K-major in shared memory; that is why B3 stages S^T, B2
+// reads Linv^T and tri_gemm.cu writes its first product as the planes of
+// its transpose. Pre-splitting costs one read and two writes of each
 // operand (1.7-1.9 ms for a 20,000^2 Linv on one H100 80GB HBM3 at 700 W)
 // and lets TMA load the planes as they are.
 //

@@ -12,6 +12,8 @@ wrapper                CUDA source (ops/csrc/)            replaces (Pallas)
 ``posterior_fused``    ``posterior.cu`` + ``tf32x3.cuh``  ``posterior_fused``
                        (+ ``ar1_cov_split`` staging)
 ``tf32_split``         ``tf32_split.cu``                  (B2/B3 operands)
+``tri_gemm``           ``tri_gemm.cu`` + ``tf32x3.cuh``   (none: Linv's strip
+                                                          products, XLA's)
 =====================  =================================  ===================
 
 B2 and B3 run their contractions on the tensor cores in 3xTF32 from
@@ -19,7 +21,10 @@ operands split into TF32 hi/lo planes: ``tf32_split`` (``tf32_split.cu``)
 splits Linv or its transpose, and ``ar1_cov_split`` has B1 write the
 posterior's staged cross-covariance as hi/lo planes itself.
 ``tf32_split_plain`` is the same split in integer operations on the float32
-pattern, bit for bit. ``ar1_cov_fused_lanes`` is B1 over a leading lane
+pattern, bit for bit. ``tri_gemm`` is the triangular tile product of
+``linalg.tri_inv_recursive``'s two per-level products on the same engine,
+for every node of one size of a level in one launch.
+``ar1_cov_fused_lanes`` is B1 over a leading lane
 axis, one covariance per lane in one launch: what ``jax.vmap`` makes of the
 Pallas kernel, for the batched study's datasets x restarts.
 
@@ -36,6 +41,8 @@ how its design handles that.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from mfgp_tpu_torch.ops import build
@@ -43,7 +50,7 @@ from mfgp_tpu_torch.ops import kernels as _k
 from mfgp_tpu_torch.ops import linalg as _la
 
 LAUNCHES = {"ar1_cov_fused": 0, "syrk_grad_fused": 0, "posterior_fused": 0,
-            "tf32_split": 0}
+            "tf32_split": 0, "tri_gemm": 0}
 _KERN_IDS = {"rbf": 0, "matern32": 1}
 _MAX_D = 8  # mfgp::kMaxD in csrc/common.cuh
 _TILE = 128  # mfgp::tc::kTile in csrc/tf32x3.cuh: B3's bands are whole tiles
@@ -216,6 +223,50 @@ def tf32_split_plain(x: torch.Tensor, transpose: bool = False):
         x = x.T
     hi = tf32_round_plain(x)
     return hi, tf32_round_plain(x - hi)
+
+
+_TRI = ("left", "right")
+
+
+def _check_tri(tri: str) -> None:
+    if tri not in _TRI:
+        raise ValueError(f"tri_gemm: tri must be 'left' or 'right', got "
+                         f"{tri!r}")
+
+
+def tri_gemm_plain(A, B, tri: str, alpha: float = 1.0, out=None):
+    """Plain ``tri_gemm``: Z products ``alpha A_z B_z^T`` for A_z (M, K)
+    and B_z (N, K), each 128 x 128 output tile (i, j) summing only the k
+    range that a triangular operand leaves nonzero: ``tri="left"`` (A lower
+    triangular) k < min(K, 128 (i + 1)), ``tri="right"`` (B^T lower
+    triangular) k >= 128 j. A and B are lists of Z matrices of one shape,
+    or (hi, lo) TF32 planes with the Z matrices' rows stacked, taken as hi
+    + lo. The products go into the Z (M, N) views of ``out``; without it
+    the (hi, lo) TF32 planes of their transposes, stacked (Z N, M), are
+    returned."""
+    _check_tri(tri)
+    Z = len(next(x for x in (A, B) if isinstance(x, list)))
+    As, Bs = ([*torch.chunk(x[0] + x[1], Z)] if isinstance(x, tuple) else x
+              for x in (A, B))
+    Cs = []
+    for z, (A, B) in enumerate(zip(As, Bs)):
+        M, K = A.shape
+        N = B.shape[0]
+        C = A.new_empty((M, N)) if out is None else out[z]
+        if tri == "left":
+            for i0 in range(0, M, _TILE):
+                k1 = min(K, i0 + _TILE)
+                torch.mul(A[i0:i0 + _TILE, :k1] @ B[:, :k1].T, alpha,
+                          out=C[i0:i0 + _TILE])
+        else:
+            for j0 in range(0, N, _TILE):
+                torch.mul(A[:, j0:] @ B[j0:j0 + _TILE, j0:].T, alpha,
+                          out=C[:, j0:j0 + _TILE])
+        Cs.append(C)
+    if out is not None:
+        return out
+    planes = [tf32_split_plain(C, transpose=True) for C in Cs]
+    return tuple(torch.cat(p) for p in zip(*planes))
 
 
 def ar1_cov_split_plain(X1, fid1, X2, fid2, variances, lengthscales, rhos,
@@ -478,14 +529,104 @@ def tf32_split(x: torch.Tensor, transpose: bool = False):
     multiple of 32 floats (see ``_planes``)."""
     if not x.is_cuda:
         return tf32_split_plain(x, transpose)
-    device = _require_f32("tf32_split", x=x)
+    _require_f32("tf32_split", x=x)
     if x.dim() != 2:
         raise ValueError(f"tf32_split: x is {tuple(x.shape)}, not a matrix")
+    return _split_view(x, transpose)
+
+
+def _split_view(x: torch.Tensor, transpose: bool, into=None):
+    """``tf32_split`` of a float32 CUDA matrix view whose rows or columns
+    are contiguous (a block of a larger matrix, or its transpose), into new
+    planes or the views ``into`` (hi, lo) with contiguous rows."""
+    if x.stride(1) != 1:  # columns contiguous: split the row-major x.T
+        x, transpose = x.T, not transpose
     rows, cols = x.shape
-    hi, lo = _planes(*((cols, rows) if transpose else (rows, cols)), device)
-    _launch("mfgp_tf32_split_f32", device, _ptr(x), rows, cols, x.stride(0),
-            int(transpose), _ptr(hi), _ptr(lo), hi.stride(0))
+    if x.stride(1) != 1 or (rows > 1 and x.stride(0) < cols):
+        raise ValueError(f"tf32_split: strides {x.stride()} of "
+                         f"{tuple(x.shape)} have no contiguous rows")
+    hi, lo = into or _planes(*((cols, rows) if transpose else (rows, cols)),
+                             x.device)
+    _launch("mfgp_tf32_split_f32", x.device, _ptr(x), rows, cols,
+            max(x.stride(0), cols), int(transpose), _ptr(hi), _ptr(lo),
+            hi.stride(0))
     LAUNCHES["tf32_split"] += 1
+    return hi, lo
+
+
+# products per launch (kMaxZ in csrc/tri_gemm.cu): the nodes of one size of
+# one level of tri_inv_recursive, of which there are 64 only past N = 65,536
+_TRI_GEMM_MAX_Z = 64
+
+
+def tri_gemm(A, B, tri: str, alpha: float = 1.0, out=None):
+    """Z products ``alpha A_z B_z^T`` (A_z (M, K), B_z (N, K)) in one
+    launch, each 128 x 128 output tile summing only the k range that the
+    triangular operand leaves nonzero (``tri``: see ``tri_gemm_plain``), on
+    the 3xTF32 tensor-core engine (see csrc/tri_gemm.cu). A and B are lists
+    of Z float32 matrix views of one shape with contiguous rows or columns,
+    split here into TF32 planes, or (hi, lo) planes with the Z matrices'
+    rows stacked, as a ``tri_gemm`` without ``out`` returns them. The
+    products are written into the Z (M, N) float32 views of ``out``
+    (contiguous rows, one row stride); without it the TF32 planes of their
+    transposes are returned, stacked (Z N, M): the K-major operand of a
+    next product."""
+    first = next(x for x in (A, B) if isinstance(x, list))[0]
+    if not first.is_cuda:
+        return tri_gemm_plain(A, B, tri, alpha, out)
+    _check_tri(tri)
+    device = first.device
+    Z = len(next(x for x in (A, B) if isinstance(x, list)))
+    if Z > _TRI_GEMM_MAX_Z:
+        raise ValueError(f"tri_gemm: {Z} products; a launch takes at most "
+                         f"{_TRI_GEMM_MAX_Z}")
+    for name, x in (("A", A), ("B", B), ("out", out or [])):
+        for t in x:
+            if t.device != device or t.dtype != torch.float32:
+                raise TypeError(f"tri_gemm: {name} is {t.dtype} on "
+                                f"{t.device}; the kernel takes float32 on "
+                                f"{device}")
+    a_hi, a_lo = _stacked_planes(A, Z)
+    b_hi, b_lo = _stacked_planes(B, Z)
+    K = a_hi.shape[1]
+    M, N = a_hi.shape[0] // Z, b_hi.shape[0] // Z
+    if b_hi.shape[1] != K or a_hi.shape[0] != Z * M or \
+            b_hi.shape[0] != Z * N:
+        raise ValueError(f"tri_gemm: {Z} products of A {tuple(a_hi.shape)} "
+                         f"and B {tuple(b_hi.shape)} (rows stacked)")
+    if out is None:
+        c_hi, c_lo = _planes(Z * N, M, device)
+        dst = (None, 0, None, _ptr(c_hi), _ptr(c_lo), c_hi.stride(0))
+    else:
+        for o in out:
+            if o.shape != (M, N) or o.stride() != out[0].stride() or \
+                    o.stride(1) != 1:
+                raise ValueError(f"tri_gemm: out {tuple(o.shape)} of strides "
+                                 f"{o.stride()} for ({M}, {N}) results with "
+                                 "contiguous rows and one row stride")
+        off = (ctypes.c_longlong * Z)(*((o.data_ptr() - out[0].data_ptr()) // 4
+                                        for o in out))
+        dst = (_ptr(out[0]), out[0].stride(0), off, None, None, 0)
+    _launch("mfgp_tri_gemm_f32", device, _ptr(a_hi), _ptr(a_lo),
+            a_hi.stride(0), _ptr(b_hi), _ptr(b_lo), b_hi.stride(0), Z, M, N,
+            K, int(tri == "left"), float(alpha), *dst)
+    LAUNCHES["tri_gemm"] += 1
+    return out if out is not None else (c_hi, c_lo)
+
+
+def _stacked_planes(x, Z: int):
+    """(hi, lo) planes of a ``tri_gemm`` operand with its Z matrices' rows
+    stacked: as given, or split here (each matrix into its rows)."""
+    if isinstance(x, tuple):
+        return x
+    rows, cols = x[0].shape
+    hi, lo = _planes(Z * rows, cols, x[0].device)
+    for z, m in enumerate(x):
+        if m.shape != (rows, cols):
+            raise ValueError(f"tri_gemm: operands {tuple(x[0].shape)} and "
+                             f"{tuple(m.shape)} differ")
+        _split_view(m, False, into=(hi[z * rows:(z + 1) * rows],
+                                    lo[z * rows:(z + 1) * rows]))
     return hi, lo
 
 

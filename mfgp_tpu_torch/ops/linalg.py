@@ -7,12 +7,18 @@ JAX package leaves them to XLA. What the port keeps is the structure: the
 triangular inverse, the triangular products and the syrk skip the zero
 half of their operands block by block, and the blocked solves bound the
 temporaries of very wide right-hand sides. Block sizes are the JAX
-package's, so both packages evaluate the same sums.
+package's, so both packages evaluate the same sums. On the card the
+float32 triangular inverse runs its products on the port's 3xTF32
+tensor-core engine instead (``tri_inv_recursive``).
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
+
 import torch
+
+from mfgp_tpu_torch.utils import profiling
 
 
 def diag_add(K: torch.Tensor, d) -> torch.Tensor:
@@ -128,22 +134,89 @@ def tri_lower_matmul_right(B: torch.Tensor, L: torch.Tensor,
 def tri_inv_recursive(L: torch.Tensor, base: int = 1024) -> torch.Tensor:
     """Lower-triangular inverse by divide and conquer,
     ``inv([[A, 0], [B, C]]) = [[Ai, 0], [-Ci B Ai, Ci]]``, with both
-    per-level products taken as triangular strips (~N^3/6 multiplies).
-    The result is row-major contiguous whatever L's strides (cuSOLVER's
-    factors are column-major), as the CUDA kernels that read it need."""
+    per-level products skipping the zero half of their triangular operand
+    (~N^3/6 multiplies) and triangular solves against the identity at
+    ``n <= base``. The result is row-major contiguous whatever L's strides
+    (cuSOLVER's factors are column-major), as the CUDA kernels that read it
+    need.
+
+    Where L is a float32 CUDA matrix that needs no gradient and ``n >
+    base``, the products run on the 3xTF32 tensor-core engine
+    (``_tri_inv_tc``, counted under ``linalg.tri_inv_tc``); everywhere else
+    as float32 or float64 ``torch.matmul`` strips, the JAX package's order
+    of evaluation. The recorder's span ``linalg.tri_inv`` covers the whole
+    inverse (not its recursion)."""
+    n = L.shape[0]
+    with profiling.span("linalg.tri_inv", device=L.is_cuda):
+        if (L.is_cuda and L.dtype == torch.float32 and not L.requires_grad
+                and n > base):
+            out = _tri_inv_tc(L, base)
+            profiling.count("linalg.tri_inv_tc")
+            return out
+        return _tri_inv_strips(L, base)
+
+
+def _tri_inv_strips(L: torch.Tensor, base: int) -> torch.Tensor:
+    """``tri_inv_recursive`` with its products as ``torch.matmul``
+    strips."""
     n = L.shape[0]
     if n <= base:
         return tri_solve(L, torch.eye(n, dtype=L.dtype,
                                       device=L.device)).contiguous()
     h = n // 2
     out = torch.zeros((n, n), dtype=L.dtype, device=L.device)
-    Ai = tri_inv_recursive(L[:h, :h], base)
+    Ai = _tri_inv_strips(L[:h, :h], base)
     out[:h, :h] = Ai
-    Ci = tri_inv_recursive(L[h:, h:], base)
+    Ci = _tri_inv_strips(L[h:, h:], base)
     out[h:, h:] = Ci
     BAi = tri_lower_matmul_right(L[h:, :h], Ai, block=base)
     del Ai
     out[h:, :h] = -tri_lower_matmul(Ci, BAi, block=base)
+    return out
+
+
+def _tri_inv_tc(L: torch.Tensor, base: int) -> torch.Tensor:
+    """``tri_inv_recursive``'s recursion evaluated level by level from the
+    bottom, into one row-major result: every base case of one size in one
+    batched triangular solve, then per level and node size the two products
+    of all its nodes in one launch each of the triangular tile product
+    ``cuda_kernels.tri_gemm`` (``B Ai`` straight into the TF32 planes of its
+    transpose, then ``-Ci (B Ai)`` into the nodes' strided blocks). On the
+    CPU the products take ``tri_gemm``'s plain version."""
+    from mfgp_tpu_torch.ops import cuda_kernels as _ck
+
+    leaves, levels = defaultdict(list), []
+
+    def walk(lo: int, n: int, depth: int) -> None:
+        if n <= base:
+            leaves[n].append(lo)
+            return
+        if len(levels) == depth:
+            levels.append(defaultdict(list))
+        levels[depth][n].append(lo)
+        walk(lo, n // 2, depth + 1)
+        walk(lo + n // 2, n - n // 2, depth + 1)
+
+    N = L.shape[0]
+    walk(0, N, 0)
+    out = torch.empty((N, N), dtype=L.dtype, device=L.device)
+    for n, los in leaves.items():
+        eye = torch.eye(n, dtype=L.dtype, device=L.device)
+        inv = tri_solve(torch.stack([L[lo:lo + n, lo:lo + n] for lo in los]),
+                        eye.expand(len(los), n, n))
+        for lo, x in zip(los, inv):
+            out[lo:lo + n, lo:lo + n] = x
+    for level in reversed(levels):
+        for n, los in level.items():
+            h = n // 2
+            for lo in los:
+                out[lo:lo + h, lo + h:lo + n].zero_()
+            BAi_t = _ck.tri_gemm([L[lo + h:lo + n, lo:lo + h] for lo in los],
+                                 [out[lo:lo + h, lo:lo + h].T for lo in los],
+                                 "right")
+            _ck.tri_gemm([out[lo + h:lo + n, lo + h:lo + n] for lo in los],
+                         BAi_t, "left", alpha=-1.0,
+                         out=[out[lo + h:lo + n, lo:lo + h] for lo in los])
     return out
 
 

@@ -287,7 +287,9 @@ def test_numpy_built_model_fits_on_the_card(dev, gen):
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_unit_slice_runs_through_the_kernels(dev, gen, kernel):
     """The unit at a small size in float32 on the card: every kernel is
-    launched, and the result agrees with the float64 plain path."""
+    launched (but ``tri_gemm``: at N = 700, under ``tri_inv_recursive``'s
+    base of 1,024, Linv is one triangular solve), and the result agrees
+    with the float64 plain path."""
     N, M, D, F = 700, 90, 3, 3
     X, Xs = gen.random((N, D)) * 6, gen.random((M, D)) * 6
     fid, fs = gen.integers(0, F, N), np.full(M, F - 1)
@@ -306,6 +308,7 @@ def test_unit_slice_runs_through_the_kernels(dev, gen, kernel):
         out[dt] = (val, grad, mu, var, dict(ck.LAUNCHES))
     v32, g32, mu32, var32, launched = out[torch.float32]
     v64, g64, mu64, var64, none = out[torch.float64]
+    assert launched.pop("tri_gemm") == 0
     assert all(n > 0 for n in launched.values()), launched
     assert all(n == 0 for n in none.values()), none  # float64: plain path
     torch.testing.assert_close(v32.double(), v64, rtol=1e-4, atol=0)
@@ -481,6 +484,182 @@ def test_fit_evaluation_is_nan_where_the_gram_does_not_factor(dev):
     assert all(bool(torch.isnan(t).any()) for t in (g.log_variances,
                                                     g.log_lengthscales,
                                                     g.log_noises))
+
+
+# (M, N, K) of tri_gemm on the card: levels of inverses of n = 705 and
+# 1,250, K at and off multiples of 128 and 32, one row or column tile
+TRI_GEMM_SHAPES = [(353, 352, 352), (625, 625, 625), (300, 261, 288),
+                   (261, 300, 256), (130, 1, 261), (1, 129, 129)]
+
+
+@pytest.mark.parametrize("planes", [False, True])
+@pytest.mark.parametrize("tri", ["left", "right"])
+@pytest.mark.parametrize("shape", TRI_GEMM_SHAPES)
+def test_tri_gemm_matches_plain(dev, shape, tri, planes):
+    """The triangular tile product on the 3xTF32 engine against its plain
+    version in float64 on the same float32 inputs: float32-level, within
+    four times the error of the plain version's own float32 (cuBLAS)
+    products, written into a strided view or as the TF32 planes of the
+    transpose."""
+    M, N, K = shape
+    g = torch.Generator().manual_seed(M * N + K)
+    A, B = (torch.randn(r, K, generator=g) for r in (M, N))
+    ref, = ck.tri_gemm_plain([A.double()], [B.double()], tri, alpha=-1.0,
+                             out=[torch.empty(M, N, dtype=torch.float64)])
+    f32, = ck.tri_gemm_plain([A.to(dev)], [B.to(dev)], tri, alpha=-1.0,
+                             out=[torch.empty(M, N, device=dev)])
+    f32 = f32.cpu()
+    before = ck.LAUNCHES["tri_gemm"]
+    if planes:
+        hi, lo = ck.tri_gemm([A.to(dev)], [B.to(dev)], tri, alpha=-1.0)
+        got = (hi.double() + lo.double()).T.cpu()
+    else:
+        big = torch.full((M + 1, N + 3), 7.0, device=dev)
+        ck.tri_gemm([A.to(dev)], [B.to(dev)], tri, alpha=-1.0,
+                    out=[big[1:, 2:N + 2]])
+        torch.cuda.synchronize()
+        got = big[1:, 2:N + 2].cpu()
+        big[1:, 2:N + 2] = 7.0
+        assert bool((big == 7.0).all())
+    assert ck.LAUNCHES["tri_gemm"] == before + 1
+
+    def normwise(x):
+        return float((x.double() - ref).abs().max() / ref.abs().max())
+
+    assert normwise(got) <= max(4 * normwise(f32), 2.0 ** -22), (
+        normwise(got), normwise(f32))
+
+
+def _bench_factor(dev, N):
+    """The float32 lower factor of the unit's rbf Gram at N points
+    (bench.py's problem and hyperparameters) on the card."""
+    from bench import _theta, build_problem
+
+    X, fid, _, _, _ = build_problem(N, 1, seed=0)
+    v, ls, rho, nz = _theta()
+    X, fid = _t(dev, X, fid.astype(np.int64))
+    K = tcov.mf_train_cov(*_t(dev, v, ls, rho, nz), X, fid, 0.0, "rbf")
+    return tla.chol(K)
+
+
+@pytest.mark.parametrize("N", [705, 1250, 3001, 5000, 20000])
+def test_tri_inv_recursive_on_the_tensor_cores(dev, N):
+    """Linv of the unit's float32 factor (at N = 3,001 the recursion's nodes
+    and base cases come in two sizes per level): above ``base`` (1,024) by
+    the tensor-core products, counted once per call under one
+    ``linalg.tri_inv`` span; row-major contiguous, zero above the diagonal,
+    and against the float64 inverse of the same factor no worse than twice
+    the strips' error, with max |L Linv - I| no more than twice theirs."""
+    L = _bench_factor(dev, N)
+    L64 = L.double()
+    eye = torch.eye(N, dtype=torch.float64, device=dev)
+    ref = torch.linalg.solve_triangular(L64, eye, upper=False)
+    profiling.enable()
+    profiling.reset()
+    try:
+        Linv = tla.tri_inv_recursive(L)
+        snap = profiling.snapshot()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert snap["spans"]["linalg.tri_inv"]["calls"] == 1
+    assert snap["counters"].get("linalg.tri_inv_tc", 0) == int(N > 1024)
+    assert Linv.is_contiguous() and Linv.dtype == torch.float32
+    assert bool((torch.triu(Linv, 1) == 0).all())
+    strips = tla._tri_inv_strips(L, 1024)
+    errs = {}
+    for name, x in (("tc", Linv), ("strips", strips)):
+        x = x.double()
+        errs[name] = (float((x - ref).abs().max() / ref.abs().max()),
+                      float((L64 @ x - eye).abs().max()))
+    assert errs["tc"][0] <= 2 * errs["strips"][0] + 2.0 ** -22, errs
+    assert errs["tc"][1] <= 2 * errs["strips"][1] + 2.0 ** -22, errs
+
+
+def test_fit_evaluation_n20k_on_the_tensor_cores(dev):
+    """The ``fit_eval_rbf`` cell's evaluation (N=20,000, its problem and
+    hyperparameters) in float32: one ``linalg.tri_inv`` span with the
+    tensor-core route counted once, within the cell's limits of its float64
+    reference (``nlml_rel``, ``grad_rel``)."""
+    import json
+    from pathlib import Path
+
+    from benchmark.common.problem import build_problem
+    from benchmark.reference import gp as ref
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "benchmark/configs/mfgp_ar1_rbf_n20k.json")
+                     .read_text())
+    limits = json.loads((root / "benchmark/traffic/fit_eval_closed.json")
+                        .read_text())["limits"]
+    X, fid, y, _, _ = build_problem(cfg["N"], 1, cfg["D"], seed=3)
+    X, y, fid = _t(dev, X, y, fid.astype(np.int64))
+    th = {k: np.asarray(v, float) for k, v in cfg["theta"].items()}
+    p = tm.params_from_numpy(np.log(th["variances"]),
+                             np.log(th["lengthscales"]), th["rhos"],
+                             np.log(th["noises"]), dev, torch.float32)
+    profiling.enable()
+    profiling.reset()
+    try:
+        v, g = tm.nlml_value_and_grad(p, X, fid, y, kernel="rbf",
+                                      jitter=cfg["jitter"])
+        snap = profiling.snapshot()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert snap["spans"]["linalg.tri_inv"]["calls"] == 1
+    assert snap["counters"]["linalg.tri_inv_tc"] == 1
+    r = ref.nlml_grad(X, fid, y, th, "rbf", cfg["jitter"])
+    g_ref = ref.grad_vector(r).double().cpu()
+    got = torch.cat([g.log_variances, g.log_lengthscales.reshape(-1),
+                     g.log_noises]).double().cpu()
+    nlml_rel = abs(float(v) - float(r["value"])) / abs(float(r["value"]))
+    grad_rel = float((got - g_ref).abs().max() / g_ref.abs().max())
+    assert nlml_rel <= limits["nlml_rel"] and grad_rel <= limits["grad_rel"], (
+        nlml_rel, grad_rel)
+
+
+@pytest.mark.parametrize("model", ["gp", "nigp"])
+def test_single_fidelity_inverse_paths_take_the_tensor_cores(dev, gen, model):
+    """The other users of ``tri_inv_recursive`` on the card, above its
+    base: the GP's (F=1) fit evaluation (against its float64 evaluation)
+    and NIGP's cached inverse factor behind ``predict_blocked`` (against
+    the float64 model's), each counting the tensor-core route once."""
+    from mfgp_tpu_torch.models import nigp as tn
+
+    N = 1500
+    X = gen.uniform(0, 6, (N, 3))
+    y = np.sin(X).sum(1) + 0.1 * gen.normal(size=N)
+    Xs = gen.uniform(0, 6, (300, 3))
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        profiling.enable()
+        profiling.reset()
+        try:
+            if model == "gp":
+                p = tg.gp_params_from_numpy(np.log(1.3),
+                                            np.log([1.0, 2.0, 0.7]),
+                                            np.log(0.05), dev, dt)
+                Xt, yt = _t(dev, X, y, dtype=dt)
+                r = tg.nlml_value_and_grad(p, Xt, yt, jitter=1e-6)
+                r = [r[0].reshape(1)] + list(r[1])
+            else:
+                m = tn.nigp_from_numpy(
+                    np.log([1.0, 2.0, 0.7, 1.3, 0.2, 0.1, 0.15, 0.05]),
+                    X, y, device=dev, dtype=dt)
+                r = [torch.as_tensor(a) for a in
+                     m.predict_blocked(Xs, block_size=128)]
+            snap = profiling.snapshot()
+        finally:
+            profiling.enable(False)
+            profiling.reset()
+        out[dt] = ([t.double().reshape(-1).cpu() for t in r],
+                   snap["counters"].get("linalg.tri_inv_tc", 0))
+    (r32, tc32), (r64, tc64) = out[torch.float32], out[torch.float64]
+    assert tc32 == 1 and tc64 == 0
+    for a, b in zip(r32, r64):
+        torch.testing.assert_close(a, b, rtol=2e-3,
+                                   atol=2e-3 * float(b.abs().max()))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The arithmetic that the port's tensor-core kernels (B2, B3) rely on.
+"""The arithmetic that the port's tensor-core kernels (B2, B3, and the
+triangular inverse's tile product ``tri_gemm``) rely on.
 
 B2 and B3 multiply on the tensor cores in 3xTF32: every float32 operand
 is split into TF32 planes ``hi = tf32_round(x)`` and ``lo = tf32_round(x -
@@ -7,7 +8,11 @@ float32. The split's plain version (``cuda_kernels.tf32_split_plain``) is
 the card's ``mfgp::tf32_round`` bit for bit; here it is held against an
 independent float64 rounding, and the emulated 3xTF32 products of the
 unit's own operands (Linv of a ``bench.build_problem`` Gram, and its
-cross-covariance) are held against float64.
+cross-covariance) are held against float64. ``tri_gemm``'s plain version
+(its k range per 128 x 128 tile, alpha, strided and plane outputs) is held
+against dense products, and ``tri_inv_recursive``'s route (the tensor-core
+products only for a float32 CUDA factor that needs no gradient) against
+the strips.
 """
 
 import numpy as np
@@ -18,6 +23,7 @@ from bench import _theta, build_problem
 from mfgp_tpu_torch.ops import cuda_kernels as ck
 from mfgp_tpu_torch.ops import kernels as tk
 from mfgp_tpu_torch.ops import linalg as tla
+from mfgp_tpu_torch.utils import profiling
 
 F32_MAX = float(np.finfo(np.float32).max)
 TINY = 2.0 ** -126  # smallest normal float32
@@ -161,3 +167,152 @@ def test_3xtf32_products_reach_float32_accuracy(product):
     assert e3 <= max(4 * e32, 2.0 ** -22), (e3, e32)
     assert e1 >= 100 * e3, (e1, e3)
 
+
+
+# (M, N, K) of tri_gemm: the top-level products of inverses of n = 705,
+# 1,250 and 5,000 (rows n - n // 2, columns and depth n // 2), and K at a
+# multiple of 128, at one of 32 only, and at neither
+TRI_GEMM_SHAPES = {"n705": (353, 352, 352), "n1250": (625, 625, 625),
+                   "n5000": (2500, 2500, 2500), "k256": (300, 261, 256),
+                   "k288": (261, 300, 288), "k261": (130, 200, 261)}
+
+
+def _tile_masked(A, B, tri):
+    """A and B with every entry that ``tri``'s k range skips set to zero:
+    for "left" A[a, k] with k >= 128 (a // 128 + 1), for "right" B[b, k]
+    with k < 128 (b // 128)."""
+    k = torch.arange(A.shape[1])
+    if tri == "left":
+        keep = k[None, :] < 128 * (torch.arange(A.shape[0])[:, None] // 128
+                                   + 1)
+        return A * keep, B
+    keep = k[None, :] >= 128 * (torch.arange(B.shape[0])[:, None] // 128)
+    return A, B * keep
+
+
+@pytest.mark.parametrize("out_mode", ["strided", "column_major", "planes",
+                                      "batched"])
+@pytest.mark.parametrize("tri", ["left", "right"])
+@pytest.mark.parametrize("shape", sorted(TRI_GEMM_SHAPES))
+def test_tri_gemm_plain_sums_the_tiles_k_range(shape, tri, out_mode):
+    """The plain twin of the card's triangular tile product: alpha A B^T
+    with each output tile's k range cut as the kernel cuts it, equal to the
+    dense product of the operands with the skipped entries zeroed; into a
+    strided view of a larger matrix (nothing around it written), from
+    column-major operands, as the TF32 planes of the transpose, or as three
+    products of one launch with the second operand as stacked planes."""
+    M, N, K = TRI_GEMM_SHAPES[shape]
+    Z = 3 if out_mode == "batched" else 1
+    g = torch.Generator().manual_seed(M + N + K)
+    dt = torch.float64 if out_mode in ("strided", "column_major") else \
+        torch.float32
+    As = [torch.randn(M, K, generator=g, dtype=dt) for _ in range(Z)]
+    Bs = [torch.randn(N, K, generator=g, dtype=dt) for _ in range(Z)]
+    if out_mode == "column_major":
+        As, Bs = ([x.T.contiguous().T for x in xs] for xs in (As, Bs))
+    if out_mode == "planes":
+        hi, lo = ck.tri_gemm(As, Bs, tri, alpha=-1.0)
+        assert hi.shape == (N, M)
+        assert not (_bits(hi) & 0x1FFF).any() and not (_bits(lo)
+                                                        & 0x1FFF).any()
+        Am, Bm = _tile_masked(As[0].double(), Bs[0].double(), tri)
+        ref = -(Am @ Bm.T)
+        err = ((hi.double() + lo.double()).T - ref).abs().max()
+        assert err <= 2.0 ** -21 * K * ref.abs().max(), float(err)
+        return
+    if out_mode == "batched":  # B as stacked planes, as a product makes it
+        planes = tuple(torch.cat(p) for p in
+                       zip(*(ck.tf32_split_plain(B) for B in Bs)))
+        Bs = [hi + lo for hi, lo in zip(*(torch.chunk(p, Z)
+                                          for p in planes))]
+    big = torch.full((Z * M + 3, N + 5), 7.0, dtype=dt)
+    outs = [big[2 + z * M:2 + (z + 1) * M, 3:N + 3] for z in range(Z)]
+    got = ck.tri_gemm(As, planes if out_mode == "batched" else Bs, tri,
+                      alpha=-1.0, out=outs)
+    assert got is outs
+    rest = big.clone()
+    rest[2:Z * M + 2, 3:N + 3] = 7.0
+    assert bool((rest == 7.0).all())
+    for A, B, o in zip(As, Bs, outs):
+        Am, Bm = _tile_masked(A.double(), B.double(), tri)
+        ref = -(Am @ Bm.T)
+        tol = 1e-12 if dt == torch.float64 else 2.0 ** -21 * K
+        torch.testing.assert_close(o.double(), ref, rtol=0,
+                                   atol=tol * float(ref.abs().max()))
+
+
+def _spd_factor(n, dtype):
+    """The lower Cholesky factor of a well-conditioned SPD matrix."""
+    g = torch.Generator().manual_seed(n)
+    A = torch.randn(n, n, generator=g, dtype=torch.float64)
+    return tla.chol(A @ A.T / n + torch.eye(n, dtype=torch.float64)).to(dtype)
+
+
+@pytest.mark.parametrize("n,base", [(705, 128), (1250, 128), (5000, 1024)])
+def test_tri_inv_tensor_core_route_with_plain_products(n, base):
+    """The card's recursion (``linalg._tri_inv_tc``: views of one row-major
+    result, the first product as TF32 planes of its transpose, the second
+    written negated into the strided block) run here with ``tri_gemm``'s
+    plain version: float32-close to the float64 inverse, as the strips are,
+    and zero above the diagonal."""
+    L = _spd_factor(n, torch.float32)
+    ref = torch.linalg.inv(L.double())
+    out = tla._tri_inv_tc(L, base)
+    strips = tla._tri_inv_strips(L, base)
+
+    def normwise(x):
+        return float((x.double() - ref).abs().max() / ref.abs().max())
+
+    assert normwise(out) <= 2 * normwise(strips) + 2.0 ** -22, (
+        normwise(out), normwise(strips))
+    assert bool((torch.triu(out, 1) == 0).all())
+
+
+def _parent_tri_inv(L, base):
+    """``tri_inv_recursive`` as the strips computed it before the
+    tensor-core route existed, kept verbatim here to hold them unchanged."""
+    n = L.shape[0]
+    if n <= base:
+        return tla.tri_solve(L, torch.eye(n, dtype=L.dtype)).contiguous()
+    h = n // 2
+    out = torch.zeros((n, n), dtype=L.dtype)
+    Ai = _parent_tri_inv(L[:h, :h], base)
+    out[:h, :h] = Ai
+    Ci = _parent_tri_inv(L[h:, h:], base)
+    out[h:, h:] = Ci
+    BAi = tla.tri_lower_matmul_right(L[h:, :h], Ai, block=base)
+    out[h:, :h] = -tla.tri_lower_matmul(Ci, BAi, block=base)
+    return out
+
+
+@pytest.mark.parametrize("case", ["cpu_float32", "float64", "requires_grad",
+                                  "column_major"])
+def test_tri_inv_recursive_off_the_card_takes_the_strips(case):
+    """Off the tensor-core route (the CPU, float64, a factor that needs a
+    gradient) ``tri_inv_recursive`` is the strips bit for bit, records one
+    ``linalg.tri_inv`` span for the whole recursion and never counts
+    ``linalg.tri_inv_tc``; the result is row-major."""
+    L = _spd_factor(1500, torch.float64 if case == "float64"
+                    else torch.float32)
+    if case == "column_major":
+        L = L.T.contiguous().T
+    if case == "requires_grad":
+        L.requires_grad_(True)
+    profiling.enable()
+    profiling.reset()
+    try:
+        Linv = tla.tri_inv_recursive(L, base=256)
+        snap = profiling.snapshot()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    with torch.no_grad():
+        want = _parent_tri_inv(L.detach(), 256)
+    assert torch.equal(Linv.detach(), want)
+    assert Linv.is_contiguous()
+    assert snap["spans"]["linalg.tri_inv"]["calls"] == 1
+    assert snap["counters"].get("linalg.tri_inv_tc", 0) == 0
+    if case == "requires_grad":
+        g, = torch.autograd.grad(Linv.diagonal().sum(), L)
+        torch.testing.assert_close(g.diagonal(), -Linv.detach().diagonal()
+                                   ** 2)
