@@ -20,7 +20,7 @@
    The build phase reports B1's registers and spills.
 4. Unit: the benchmark unit of ``bench.py`` at full size (N=20,000
    training points, the M=10,571-point grid, F=3, D=3, float32) for rbf and
-   matern32: ``nlml_value_grad_state_inv(inv_mode="highest")`` then
+   matern32: ``nlml_value_grad_state_inv`` then
    ``predict_fused``. The NLML is held against the recorded float64 NumPy
    values, the gradient against the plain float64 path (every entry, and
    the rbf g_logvar normwise), and the launch counters show that every
@@ -39,8 +39,7 @@
    rhos included, N=2,000, both bases) against float64, the Function's
    backward for an asymmetric cotangent (N=1,000), and the analytic
    gradient at ROADMAP C5's inputs (``grad_from_kinv`` and B2 within 2e-3
-   per component of float64). Where one analytic and
-   one autodiff evaluation's time goes at N=20,000 (CUDA events). Then,
+   per component of float64). Then,
    with the launch counters from 0, the full-width fits (N=20,000):
    ``MFGP.optimize_restarts`` (rbf, matern32), ``MFGP.optimize`` (scipy on
    the autodiff NLML, rbf) and ``GP.optimize_restarts`` (rbf), each a few
@@ -326,11 +325,6 @@ times only B1 at its main-path launch shapes (with its registers, static
 SASS and a checksum of its output bits) and the unit's wall for the port package of the checkout at
 ROOT, so that two commits can be timed in turns on one card. It prints
 no result line.
-
-    python3 chip_smoke.py --eval-times ROOT
-
-measures only phase 6's C5 checks and one fit evaluation's phases at
-N=20,000 (rbf and matern32) for the package at ROOT, likewise.
 """
 
 from __future__ import annotations
@@ -964,42 +958,6 @@ def b1_times_only(root: str) -> int:
     return 0
 
 
-def eval_times_only(root: str) -> int:
-    """``--eval-times ROOT``: phase 6's C5 checks (``c5_checks``) and
-    evaluation phases (``eval_phases``, rbf and matern32, three times each)
-    for the port package of the checkout at ROOT (another commit's, so
-    that two versions can be measured in turns on one card); it reports
-    and exits 0, it holds nothing."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    root = os.path.abspath(root)
-    sys.path.insert(0, root)
-    from mfgp_tpu_torch.models import mfgp as mf
-    from mfgp_tpu_torch.ops import build
-    from mfgp_tpu_torch.ops import covariance as cov
-    from mfgp_tpu_torch.ops import cuda_kernels as ck
-    from mfgp_tpu_torch.ops import linalg as la
-
-    if not os.path.abspath(ck.__file__).startswith(root + os.sep):
-        print(f"chip_smoke: imported {ck.__file__}, not from {root}",
-              file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    build.load_library()
-    emit("eval_times", root=root, nvidia_smi=nvidia_smi())
-    c5_checks(torch, ck, dev)
-    problem = make_problem(torch, mf, dev)
-    for kern in BASES:
-        for _ in range(3):
-            eval_phases(torch, ck, mf, la, cov, problem, kern)
-    FAILURES.clear()
-    return 0
-
-
 def b1_bits(torch, ck, problem, kern: str) -> dict:
     """A checksum of B1's output bits at each main-path launch shape: the
     sum of every output float's 32-bit pattern as an integer, so that two
@@ -1037,7 +995,7 @@ def run_unit(torch, ck, mf, problem, kern: str, nlml_ref: float):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     val, grad, state = mf.nlml_value_grad_state_inv(
-        params, Xt, ft, yt, kernel=kern, jitter=1e-6, inv_mode="highest")
+        params, Xt, ft, yt, kernel=kern, jitter=1e-6)
     mu, var = mf.predict_fused(params, state, gt, gft, kernel=kern)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -1612,48 +1570,6 @@ def gp_unit_check(torch, ck, problem, params, grad, state, info):
          **info)
 
 
-def eval_phases(torch, ck, mf, la, cov, problem, kern: str = "rbf"):
-    """Phase 6: where one fit evaluation's time goes at full size (the
-    problem's params), on CUDA events: the blocked route's steps as
-    ``_nlml_vg_core(inv_mode=None)`` runs them (a float32 fit on the card
-    takes the unit's route, Linv and B2, instead), and the autodiff
-    evaluation's forward and backward."""
-    Xt, ft, yt, _, _, p = problem
-    v, ls, rho, nz = p.variances, p.lengthscales, p.rhos, p.noises
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
-    torch.cuda.synchronize()
-    ev[0].record()
-    Kn = cov.mf_train_cov(v, ls, rho, nz, Xt, ft, 1e-6, kern)
-    ev[1].record()
-    L = la.chol(Kn)
-    del Kn
-    ev[2].record()
-    alpha = la.solve_posterior(L, yt)
-    la.logdet_from_chol(L)
-    ev[3].record()
-    Kinv = la.chol_solve_blocked(L, torch.eye(Xt.shape[0], device=Xt.device))
-    del L
-    ev[4].record()
-    ck.grad_from_kinv(Kinv, alpha, Xt, ft, v, ls, rho, nz, kern)
-    ev[5].record()
-    del Kinv
-    q = mf.MFGPParams(*(t.detach().clone().requires_grad_(True) for t in p))
-    ev[6].record()
-    val = mf.nlml(q, Xt, ft, yt, kernel=kern, jitter=1e-6)
-    ev[7].record()
-    torch.autograd.grad(val, list(q))
-    ev[8].record()
-    torch.cuda.synchronize()
-    names = ("assembly", "chol", "alpha_logdet", "kinv_solves",
-             "contractions")
-    analytic = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
-    autodiff = {"forward": ev[6].elapsed_time(ev[7]),
-                "backward": ev[7].elapsed_time(ev[8])}
-    emit("fit", part="eval_phases", base=kern, N=int(Xt.shape[0]),
-         analytic_ms=analytic, analytic_sum_ms=sum(analytic.values()),
-         autodiff_ms=autodiff, autodiff_sum_ms=sum(autodiff.values()))
-
-
 # ROADMAP C5's inputs (F=3): 300 points uniform over the simulator's
 # 10 x 20 x 10 m box at lengthscales 1.0 and 0.3, and 60 points near
 # (15, 15, 15), spread 0.003, at lengthscale 0.002
@@ -1697,14 +1613,13 @@ def c5_checks(torch, ck, dev) -> dict:
     return out
 
 
-def fit_phase(torch, ck, mf, gp, la, cov, dev, problem):
+def fit_phase(torch, ck, mf, gp, cov, dev, problem):
     """Phase 6 (see the module docstring); returns the launches of the fit
     paths, counted from 0 over the fits and the single-fidelity unit."""
     from bench import _theta
 
     autodiff_checks(torch, mf, cov, dev)
     c5_checks(torch, ck, dev)
-    eval_phases(torch, ck, mf, la, cov, problem)
     Xt, ft, yt, gt, _, params = problem
     v, l, _, nz = _theta()
     f32 = torch.float32
@@ -1994,8 +1909,8 @@ def study_phase(torch, ck, cov, dev) -> dict:
           "on CUDA parameters (a wrapper counts only where it launches, so "
           "no launch was made on a CPU tensor)")
     check("study launches", launches["ar1_cov_fused"] > 0,
-          f"kernel launches over the study: {launches} (B2 and B3 are not "
-          "on this path: its fits take inv_mode=None, as in JAX)")
+          f"kernel launches over the study: {launches} (its fits' analytic "
+          "gradient takes Linv and B2 on the card; B3 is not on this path)")
 
     tm = probe.timings
     fits_s = by_family(probe.fits, "seconds")
@@ -2553,9 +2468,10 @@ BATCHED_RESTARTS = (8, 2)
 def batched_eval_phases(torch, ck, dev, L: int = 288, N: int = 705) -> dict:
     """One lane-batched SFGP evaluation (``mfgp.nlml_value_and_grad_lanes``
     at F=1) of L lanes at N, phase by phase on CUDA events: B1's lane axis
-    (Gram + noise), the batched Cholesky, alpha and logdet, K^-1 as the
-    port forms it (triangular inverse, product) and by ``cholesky_solve``
-    on the identity, the trace contractions; and the whole call."""
+    (Gram + noise), the batched Cholesky, alpha (two products with Linv)
+    and logdet, K^-1 as the port forms it (triangular inverse, product) and
+    by ``cholesky_solve`` on the identity, the trace contractions; and the
+    whole call."""
     from mfgp_tpu_torch.models import gp
     from mfgp_tpu_torch.ops import linalg as la
 
@@ -2571,11 +2487,13 @@ def batched_eval_phases(torch, ck, dev, L: int = 288, N: int = 705) -> dict:
         X, fid, X, fid, v, ls, rho, noise))
     Lc = la.chol(K)
     out["chol_ms"] = cuda_ms(torch, lambda: la.chol(K))
-    alpha = la.solve_posterior(Lc, y)
+    Linv = la.tri_inv_lanes(Lc)
+    alpha = ((Linv @ y[..., None]).mT @ Linv)[..., 0, :]
     out["alpha_logdet_ms"] = cuda_ms(torch, lambda: (
-        la.solve_posterior(Lc, y), la.logdet_from_chol(Lc)))
-    Kinv = la.kinv_from_chol(Lc)
-    out["kinv_ms"] = cuda_ms(torch, lambda: la.kinv_from_chol(Lc))
+        (Linv @ y[..., None]).mT @ Linv, la.logdet_from_chol(Lc)))
+    Kinv = Linv.mT @ Linv
+    out["kinv_ms"] = cuda_ms(torch, lambda: (
+        lambda Li: Li.mT @ Li)(la.tri_inv_lanes(Lc)))
     eye = torch.eye(N, device=dev).expand(L, N, N)
     out["kinv_cholesky_solve_ms"] = cuda_ms(
         torch, lambda: torch.cholesky_solve(eye, Lc))
@@ -6266,13 +6184,11 @@ def only_phases(names) -> int:
 def main(argv) -> int:
     if argv[:1] == ["--b1-times"] and len(argv) == 2:
         return b1_times_only(argv[1])
-    if argv[:1] == ["--eval-times"] and len(argv) == 2:
-        return eval_times_only(argv[1])
     if argv[:1] == ["--only"] and len(argv) == 2:
         return only_phases(argv[1].split(","))
     if argv:
-        print("usage: chip_smoke.py [--b1-times ROOT | --eval-times ROOT | "
-              "--only PHASE,...]", file=sys.stderr)
+        print("usage: chip_smoke.py [--b1-times ROOT | --only PHASE,...]",
+              file=sys.stderr)
         return 2
     import torch
 
@@ -6328,7 +6244,7 @@ def main(argv) -> int:
     times = {kern: unit_times(torch, ck, mf, la, cov, problem, kern,
                               states[kern]) for kern in BASES}
     del states
-    fit_launches = fit_phase(torch, ck, mf, gp, la, cov, dev, problem)
+    fit_launches = fit_phase(torch, ck, mf, gp, cov, dev, problem)
     torch.cuda.empty_cache()
     path_launches = study_path_phases(torch, ck, cov, dev, problem)
     if "jax" in sys.modules:

@@ -18,7 +18,7 @@ same code on the card: the training Gram and cross-covariances through B1
 its analytic gradient with an XLA composition of the same mathematics),
 the autodiff NLML through ``sf_cov_diff`` (B1 forward, closed-form
 backward), and the analytic gradient through ``mfgp._nlml_vg_core`` at
-F=1, so ``inv_mode="highest"`` reaches B2 at F=1.
+F=1, so every analytic gradient reaches B2 at F=1.
 
 The parameter vector is GPy's ``param_array``: ``[variance,
 lengthscale_1..D, noise]`` (reference/GPTrainers.py:85-88).
@@ -137,26 +137,23 @@ def nlml(params: GPParams, X, y, extra_noise_diag=0.0, kernel: str = "rbf",
 
 
 def _gp_vg_core(params: GPParams, X, y, extra_noise_diag=0.0,
-                kernel: str = "rbf", jitter: float = 0.0,
-                inv_mode: str | None = None, keep_L: bool = False):
+                kernel: str = "rbf", jitter: float = 0.0):
     """NLML and its analytic gradient: ``mfgp._nlml_vg_core`` at F=1, the
     extra noise riding on the jitter diagonal. Returns ``(val, GPParams
-    grad, L, alpha, Linv)``."""
+    grad, alpha, Linv)``."""
     fid = torch.zeros(X.shape[0], dtype=torch.long, device=X.device)
-    val, g, L, alpha, Linv = _mf._nlml_vg_core(
-        _as_mf(params), X, fid, y, kernel, extra_noise_diag + jitter,
-        inv_mode=inv_mode, keep_L=keep_L)
+    val, g, alpha, Linv = _mf._nlml_vg_core(
+        _as_mf(params), X, fid, y, kernel, extra_noise_diag + jitter)
     grad = GPParams(g.log_variances[0], g.log_lengthscales[0],
                     g.log_noises[0])
-    return val, grad, L, alpha, Linv
+    return val, grad, alpha, Linv
 
 
 def nlml_value_and_grad(params: GPParams, X, y, extra_noise_diag=0.0,
                         kernel: str = "rbf", jitter: float = 0.0):
-    """``mfgp.nlml_value_and_grad`` at F=1: Linv and B2 on the card, the
-    blocked solves elsewhere (``mfgp._fit_inv_mode``)."""
+    """``mfgp.nlml_value_and_grad`` at F=1: Linv and B2."""
     val, grad, *_ = _gp_vg_core(params, X, y, extra_noise_diag, kernel,
-                                jitter, inv_mode=_mf._fit_inv_mode(X, kernel))
+                                jitter)
     return val, grad
 
 
@@ -175,22 +172,12 @@ def nlml_value_and_grad_lanes(params: GPParams, X, y, kernel: str = "rbf",
                          g.log_noises[:, 0])
 
 
-def nlml_value_grad_state(params: GPParams, X, y, extra_noise_diag=0.0,
-                          kernel: str = "rbf", jitter: float = 0.0):
-    """(value, grad, GPState) sharing one factorization."""
-    val, grad, L, alpha, _ = _gp_vg_core(params, X, y, extra_noise_diag,
-                                         kernel, jitter, keep_L=True)
-    return val, grad, GPState(X, y, L, alpha)
-
-
 def nlml_value_grad_state_inv(params: GPParams, X, y, extra_noise_diag=0.0,
-                              kernel: str = "rbf", jitter: float = 0.0,
-                              inv_mode: str | None = "highest"):
+                              kernel: str = "rbf", jitter: float = 0.0):
     """(value, grad, GPStateInv): the single-fidelity unit; on a CUDA
     float32 problem the gradient comes from B2 at F=1."""
-    val, grad, _, alpha, Linv = _gp_vg_core(params, X, y, extra_noise_diag,
-                                            kernel, jitter,
-                                            inv_mode=inv_mode)
+    val, grad, alpha, Linv = _gp_vg_core(params, X, y, extra_noise_diag,
+                                         kernel, jitter)
     return val, grad, GPStateInv(X, y, Linv, alpha)
 
 

@@ -189,46 +189,33 @@ def nlml(params: MFGPParams, X, fid, y, kernel: str = "rbf",
             + 0.5 * N * _LOG2PI)
 
 
-def _nlml_vg_core(params: MFGPParams, X, fid, y, kernel: str,
-                  jitter, inv_mode: str | None = None, keep_L: bool = False):
+def _nlml_vg_core(params: MFGPParams, X, fid, y, kernel: str, jitter):
     """NLML and its analytic gradient (rhos held fixed); returns
-    ``(val, grad, L, alpha, Linv)``. ``jitter`` may be a per-point (N,)
+    ``(val, grad, alpha, Linv)``. ``jitter`` may be a per-point (N,)
     vector (the GP's extra noise).
 
-    ``inv_mode=None``: alpha by two triangular solves, K^-1 by two blocked
-    triangular solves; L is returned when ``keep_L`` (the conditioned
-    state's factor), else freed before the contractions.
-    ``inv_mode="highest"``: the explicit inverse factor Linv (triangular
-    divide and conquer), alpha as two triangular products with it, and the
-    gradient from Linv through the fused B2 kernel (CUDA float32) or the
-    structure-aware syrk and the plain contractions; L is not returned.
-    The two routes evaluate the same NLML and trace-identity gradient in
-    another order, from the same factor, and are as near to float64. The
-    blocked solves spend two thirds of their 2 N^3 multiplies on the
-    identity's zeros; Linv takes ~N^3/6 and B2 never forms K^-1, so where
-    the kernels apply the inverse route is the faster at every N (on an
-    H100, rbf, F=3: 0.77x the blocked route's time at N=705, 0.33x at
-    N=20,000).
-    ``_fit_inv_mode`` picks the route of the evaluations that keep no
-    factor.
+    One route on every device and dtype: the explicit inverse factor Linv
+    (triangular divide and conquer), alpha as two triangular products with
+    it, and the gradient from Linv through the fused B2 kernel (CUDA
+    float32) or the structure-aware syrk and the plain contractions. Linv
+    costs ~N^3/6 multiplies and B2 never forms K^-1, where blocked solves
+    on the identity would spend two thirds of their 2 N^3 on its zeros.
     There is no reduced-precision mode: the port's products are IEEE fp32
-    or fp64 (B2 in 3xTF32, fp32's accuracy).
+    or fp64 (B2 in 3xTF32, fp32's accuracy). ``nlml_value_and_grad_lanes``
+    takes this route batched, with plain B2; the sharded NLML of
+    ``parallel/`` keeps its distributed triangular solves.
 
     Each N x N buffer is freed once consumed (Kn after the factorization,
-    L after K^-1 or Linv is formed, K^-1 after the contractions), and no
-    base kernel stays alive for the gradient (the contractions rebuild
-    each one): at N=20,000 every f32 N x N buffer is 1.6 GB.
+    L once Linv is formed), and no base kernel stays alive for the
+    gradient (the contractions rebuild each one): at N=20,000 every f32
+    N x N buffer is 1.6 GB.
 
     Its stages are the recorder's spans (``utils/profiling``, with device
     time on the card): ``mfgp.gram`` (B1 Gram + noise), ``mfgp.chol``
-    (B4), ``mfgp.kinv`` (alpha and K^-1, B5) or ``mfgp.inv`` (Linv and
-    alpha), ``mfgp.grad``.
+    (B4), ``mfgp.inv`` (Linv and alpha), ``mfgp.grad``.
     """
     if kernel not in ("rbf", "matern32"):
         raise NotImplementedError(f"analytic gradient: {kernel}")
-    if inv_mode not in (None, "highest"):
-        raise ValueError(f"inv_mode must be None or 'highest', got "
-                         f"{inv_mode!r}")
     N = X.shape[0]
     v, ls, rhos, nz = (params.variances, params.lengthscales, params.rhos,
                        params.noises)
@@ -239,51 +226,28 @@ def _nlml_vg_core(params: MFGPParams, X, fid, y, kernel: str,
         L = _la.chol(Kn)
         del Kn
         logdet = _la.logdet_from_chol(L)
-    if inv_mode is None:
-        with profiling.span("mfgp.kinv", device=dev):
-            alpha = _la.solve_posterior(L, y)
-            Kinv = _la.chol_solve_blocked(
-                L, torch.eye(N, dtype=X.dtype, device=X.device))
-        if not keep_L:
-            L = None
-        with profiling.span("mfgp.grad", device=dev):
-            g = _ck.grad_from_kinv(Kinv, alpha, X, fid, v, ls, rhos, nz,
-                                   kernel)
-        del Kinv
-        Linv = None
-    else:
-        with profiling.span("mfgp.inv", device=dev):
-            Linv = _la.tri_inv_recursive(L)
-            L = None
-            z = _la.tri_lower_matmul(Linv, y[:, None])
-            alpha = _la.tri_lower_matmul_right(z.reshape(1, -1),
-                                               Linv).reshape(-1)
-        grad_fn = (_ck.syrk_grad_fused if _cov.use_cuda_kernels(X, kernel)
-                   else _ck.syrk_grad_fused_plain)
-        with profiling.span("mfgp.grad", device=dev):
-            g = grad_fn(Linv, alpha, X, fid, v, ls, rhos, nz, kern=kernel)
+    with profiling.span("mfgp.inv", device=dev):
+        Linv = _la.tri_inv_recursive(L)
+        del L
+        z = _la.tri_lower_matmul(Linv, y[:, None])
+        alpha = _la.tri_lower_matmul_right(z.reshape(1, -1),
+                                           Linv).reshape(-1)
+    grad_fn = (_ck.syrk_grad_fused if _cov.use_cuda_kernels(X, kernel)
+               else _ck.syrk_grad_fused_plain)
+    with profiling.span("mfgp.grad", device=dev):
+        g = grad_fn(Linv, alpha, X, fid, v, ls, rhos, nz, kern=kernel)
     val = 0.5 * torch.dot(y, alpha) + 0.5 * logdet + 0.5 * N * _LOG2PI
     g_logvar, g_logls, g_lognoise = g
     grad = MFGPParams(g_logvar, g_logls, torch.zeros_like(rhos), g_lognoise)
-    return val, grad, L, alpha, Linv
-
-
-def _fit_inv_mode(X, kernel: str) -> str | None:
-    """The route of a fit's evaluation, which keeps no factor: the inverse
-    factor and B2 (``"highest"``) where the hand-written kernels apply
-    (``use_cuda_kernels``: CUDA, float32, rbf or matern32), else K^-1 by
-    blocked solves, the JAX package's order of evaluation."""
-    return "highest" if _cov.use_cuda_kernels(X, kernel) else None
+    return val, grad, alpha, Linv
 
 
 def nlml_value_and_grad(params: MFGPParams, X, fid, y, kernel: str = "rbf",
                         jitter: float = 0.0):
     """NLML and its analytic trace-identity gradient (rhos held fixed,
-    their gradient zero): every restart fit's evaluation. On the card it
-    takes Linv and B2 and never forms K^-1; elsewhere the blocked solves
-    (``_fit_inv_mode``)."""
-    val, grad, *_ = _nlml_vg_core(params, X, fid, y, kernel, jitter,
-                                  inv_mode=_fit_inv_mode(X, kernel))
+    their gradient zero): every restart fit's evaluation, by Linv and B2
+    (``_nlml_vg_core``); K^-1 is never formed."""
+    val, grad, *_ = _nlml_vg_core(params, X, fid, y, kernel, jitter)
     return val, grad
 
 
@@ -292,11 +256,12 @@ def nlml_value_and_grad_lanes(params: MFGPParams, X, fid, y,
     """``nlml_value_and_grad`` of L lanes at once, each lane its own
     dataset: every field of ``params`` carries a leading lane axis ((L, F),
     (L, F, D), (L, F-1), (L, F)), as do X (L, N, D), fid (L, N) and y
-    (L, N). ``_nlml_vg_core``'s ``inv_mode=None`` over lanes: the Grams by
-    one launch of B1's lane axis (CUDA float32), then batched Cholesky,
-    alpha, logdet, K^-1 by one batched ``cholesky_solve``, and the
-    trace-identity contractions over the lane axis (``grad_from_kinv``). A
-    lane whose Gram does not factor gets a NaN value and gradient, for the
+    (L, N). The single fit's route, batched: the Grams by one launch of
+    B1's lane axis (CUDA float32), then batched Cholesky and logdet, Linv
+    by one batched solve on the identity, alpha as two products with it,
+    and plain B2 (K^-1 = Linv^T Linv, then the trace-identity contractions
+    over the lane axis, ``grad_from_kinv``; B2's kernel has no lane axis).
+    A lane whose Gram does not factor gets a NaN value and gradient, for the
     caller's ``penalize_nonfinite``; nothing raises and nothing is read
     back to the host. Returns ``(val (L,), MFGPParams of gradients)``."""
     if kernel not in ("rbf", "matern32"):
@@ -309,9 +274,11 @@ def nlml_value_and_grad_lanes(params: MFGPParams, X, fid, y,
     L = _la.chol(Kn)
     del Kn
     logdet = _la.logdet_from_chol(L)
-    alpha = _la.solve_posterior(L, y)
-    Kinv = _la.kinv_from_chol(L)
+    Linv = _la.tri_inv_lanes(L)
     del L
+    alpha = ((Linv @ y[..., None]).mT @ Linv)[..., 0, :]
+    Kinv = Linv.mT @ Linv
+    del Linv
     g_logvar, g_logls, g_lognoise = _ck.grad_from_kinv(
         Kinv, alpha, X, fid, v, ls, rhos, nz, kernel)
     del Kinv
@@ -321,22 +288,12 @@ def nlml_value_and_grad_lanes(params: MFGPParams, X, fid, y,
                            g_lognoise)
 
 
-def nlml_value_grad_state(params: MFGPParams, X, fid, y,
-                          kernel: str = "rbf", jitter: float = 0.0):
-    """(value, grad, MFGPState) sharing one factorization: a fit's last
-    step needs both the gradient and the conditioned posterior state."""
-    val, grad, L, alpha, _ = _nlml_vg_core(params, X, fid, y, kernel,
-                                           jitter, keep_L=True)
-    return val, grad, MFGPState(X, fid, y, L, alpha)
-
-
 def nlml_value_grad_state_inv(params: MFGPParams, X, fid, y,
-                              kernel: str = "rbf", jitter: float = 0.0,
-                              inv_mode: str | None = "highest"):
+                              kernel: str = "rbf", jitter: float = 0.0):
     """(value, grad, MFGPStateInv) from ONE factorization: the train step
     of the benchmark unit. The state carries Linv for ``predict_fused``."""
-    val, grad, _, alpha, Linv = _nlml_vg_core(params, X, fid, y, kernel,
-                                              jitter, inv_mode=inv_mode)
+    val, grad, alpha, Linv = _nlml_vg_core(params, X, fid, y, kernel,
+                                           jitter)
     return val, grad, MFGPStateInv(X, fid, y, Linv, alpha)
 
 

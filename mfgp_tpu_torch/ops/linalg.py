@@ -67,15 +67,12 @@ def solve_posterior(L: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
 
 
-def kinv_from_chol(L: torch.Tensor) -> torch.Tensor:
-    """``K^-1 = Linv^T Linv`` of each lane (..., N, N) from its lower
-    Cholesky factor: one batched triangular solve on the identity, then one
-    batched product. (On the H100 at 720 lanes of N=705 this takes 21 + 12
-    ms where a batched ``cholesky_solve`` on the identity takes 95.) A NaN
-    factor gives NaN."""
+def tri_inv_lanes(L: torch.Tensor) -> torch.Tensor:
+    """Linv of each lane (..., N, N) from its lower Cholesky factor: one
+    batched triangular solve on the identity (``tri_inv_recursive``'s base
+    case). A NaN factor gives NaN."""
     eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
-    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
-    return Linv.mT @ Linv
+    return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
 
 
 def tri_solve_blocked(L: torch.Tensor, B: torch.Tensor,

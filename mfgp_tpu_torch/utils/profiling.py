@@ -91,12 +91,15 @@ class _Span:
         if self.ev0 is not None:
             ev1 = torch.cuda.Event(enable_timing=True)
             ev1.record()
+        # the clock is read after the range's exit, as after its entry:
+        # record_function runs less of its own Python after either
+        # timestamp than before it, so little comes between the two clocks
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
         t1 = time.time_ns()
         self.rec._stack().pop()
         self.rec._add((self.name, self.t0, t1, threading.get_ident(),
                        self.id, self.parent, self.rid, self.ev0, ev1))
-        if self.rf is not None:
-            self.rf.__exit__(*exc)
         return False
 
 
@@ -210,6 +213,14 @@ class PhaseTimer:
 
 
 RECORDER = PhaseTimer()
+
+# A process's first ``record_function`` finishes its lazy set-up (torch
+# 2.13 imports a module there) after its range has opened, and a garbage
+# collection during that import can hold it for tens of ms: one range
+# here, with no profiler running, keeps that set-up out of the first
+# traced span, whose start would otherwise lag its range's.
+with torch.profiler.record_function("mfgp_tpu_torch.profiling"):
+    pass
 
 
 def enable(on: bool = True) -> None:

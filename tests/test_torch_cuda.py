@@ -12,6 +12,7 @@ with a card and no jax it runs on its own:
 import numpy as np
 import pytest
 import torch
+from torch_blocked_route import blocked_evaluation
 
 from mfgp_tpu_torch.models import gp as tg
 from mfgp_tpu_torch.models import mfgp as tm
@@ -446,7 +447,7 @@ def test_fit_evaluation_takes_linv_and_b2_on_the_card(dev, kernel):
     factor and B2 (``mfgp.inv`` and one B2 launch, no ``mfgp.kinv``),
     within the fit cell's limits of the float64 evaluation (``nlml_rel``
     0.012, ``grad_rel`` 0.05), and no further from it than the blocked
-    route at the same theta."""
+    route at the same theta (``torch_blocked_route``)."""
     X, fid, y, _, _, p = _parallel_problem(dev, N=4096)
     profiling.enable()
     profiling.reset()
@@ -459,7 +460,7 @@ def test_fit_evaluation_takes_linv_and_b2_on_the_card(dev, kernel):
         profiling.reset()
     assert "mfgp.inv" in spans and "mfgp.kinv" not in spans
     assert ck.LAUNCHES["syrk_grad_fused"] == 1
-    vb, gb, *_ = tm._nlml_vg_core(p, X, fid, y, kernel, 0.0)
+    vb, gb = blocked_evaluation(p, X, fid, y, kernel)
     v64, g64 = tm.nlml_value_and_grad(tm.MFGPParams(*_f64(*p)),
                                       *_f64(X, fid, y), kernel=kernel)
     inv = _evaluation_errors(v, g, v64, g64)

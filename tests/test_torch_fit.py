@@ -254,23 +254,6 @@ def test_nlml_not_positive_definite():
     assert np.isnan(float(ref)) and torch.isnan(got)
 
 
-@pytest.mark.parametrize("kernel", KERNELS)
-def test_nlml_value_grad_state(kernel):
-    rng, X, fid, y = problem(6, 3)
-    raw = raw_params(rng, 3)
-    v0, g0, s0 = jm.nlml_value_grad_state(jm.MFGPParams(*jx(*raw)),
-                                          *jx(X, fid, y), kernel=kernel,
-                                          jitter=JITTER)
-    v1, g1, s1 = tm.nlml_value_grad_state(
-        tm.params_from_numpy(*raw, "cpu", torch.float64), *tt(X, fid, y),
-        kernel=kernel, jitter=JITTER)
-    close(v1, v0)
-    for a, b in zip(g1, g0):
-        close(a, b)
-    close(s1.L, s0.L)
-    close(s1.alpha, s0.alpha)
-
-
 # ---------------------------------------------------------------------------
 # the L-BFGS optimizers
 # ---------------------------------------------------------------------------

@@ -8,9 +8,9 @@ float64 values, gradients and posteriors agree to rtol 1e-7, fits to rtol
 Pallas forward in interpret mode in float32 at 2e-4.
 
 Routing note: on a CUDA float32 problem the port assembles the Gram of the
-analytic gradient through B1 and takes ``inv_mode="highest"``'s gradient
-from B2 at F=1; on the CPU both run their plain versions, which is what
-is compared here (the kernels are held against those on the card).
+analytic gradient through B1 and takes its gradient from B2 at F=1; on the
+CPU both run their plain versions, which is what is compared here (the
+kernels are held against those on the card).
 """
 
 import jax
@@ -111,29 +111,38 @@ def test_nlml_not_positive_definite():
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
-@pytest.mark.parametrize("inv_mode", [None, "highest"])
-def test_value_grad_state(kernel, inv_mode):
-    """The analytic gradient (the port's F=1 MFGP core) with its state;
-    ``inv_mode="highest"`` is the path that reaches B2 at F=1 on the
-    card."""
+def test_value_and_grad_with_extra_noise(kernel):
+    """The analytic gradient (the port's F=1 MFGP core, the route that
+    reaches B2 at F=1 on the card) with a per-point extra noise, against
+    the JAX package's."""
     rng, X, y = data(3)
     extra = rng.uniform(0.0, 0.01, X.shape[0])
     jp, tp = params()
-    Xj, yj, ej = (jnp.asarray(a) for a in (X, y, extra))
-    Xt, yt, et = (torch.as_tensor(a) for a in (X, y, extra))
     kw = dict(kernel=kernel, jitter=JITTER)
-    v1, g1 = tg.nlml_value_and_grad(tp, Xt, yt, et, **kw)
-    v0, g0 = jg.nlml_value_and_grad(jp, Xj, yj, ej, **kw)
+    v1, g1 = tg.nlml_value_and_grad(
+        tp, *(torch.as_tensor(a) for a in (X, y, extra)), **kw)
+    v0, g0 = jg.nlml_value_and_grad(
+        jp, *(jnp.asarray(a) for a in (X, y, extra)), **kw)
     close(v1, v0)
     for a, b in zip(g1, g0):
         close(a, b)
-    if inv_mode is None:
-        v1, g1, s1 = tg.nlml_value_grad_state(tp, Xt, yt, **kw)
-        v0, g0, s0 = jg.nlml_value_grad_state(jp, Xj, yj, **kw)
-        close(s1.L, s0.L)
-    else:
-        v1, g1, s1 = tg.nlml_value_grad_state_inv(tp, Xt, yt, **kw)
-        v0, g0, s0 = jg.nlml_value_grad_state_inv(jp, Xj, yj, **kw)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("jax_route", [None, "highest"])
+def test_value_grad_state(kernel, jax_route):
+    """The analytic gradient with its state against either route of the
+    JAX package: K^-1 by blocked solves (``inv_mode=None``) or its own
+    inverse factor (``"highest"``), whose Linv the port's must equal."""
+    _, X, y = data(3)
+    jp, tp = params()
+    Xj, yj = jnp.asarray(X), jnp.asarray(y)
+    Xt, yt = torch.as_tensor(X), torch.as_tensor(y)
+    kw = dict(kernel=kernel, jitter=JITTER)
+    v1, g1, s1 = tg.nlml_value_grad_state_inv(tp, Xt, yt, **kw)
+    v0, g0, s0 = jg.nlml_value_grad_state_inv(jp, Xj, yj, **kw,
+                                              inv_mode=jax_route)
+    if jax_route is not None:
         close(s1.Linv, s0.Linv)
     close(v1, v0)
     for a, b in zip(g1, g0):
