@@ -29,7 +29,8 @@ that an n such as 80,000 over 4 ranks (20,000 columns each, panels of 250)
 runs without a width chosen by hand. The fully sharded NLML's stages are
 the recorder's spans (``utils/profiling``): ``par.nlml`` around an
 evaluation, ``par.gram``, ``par.chol``, ``par.trisolve`` and ``par.grad``
-inside it, and ``par.comm`` (``parallel/mesh``) inside those.
+inside it, and ``par.comm`` (``parallel/mesh``) inside those; the counter
+``par.sweep_macs`` adds up the multiply-adds its identity sweeps issue.
 """
 
 from __future__ import annotations
@@ -222,6 +223,61 @@ def _tri_solve_upper_body(mesh, L_cols, Y_cols, n, block, layout="block"):
     return X
 
 
+def _kinv_block_lower_cols(mesh, L_cols, n, block, layout="block"):
+    """This rank's identity columns of K^-1 = L^-T L^-1, block-lower only:
+    the columns S of its block-cyclic panels (whatever L's layout, so that
+    every rank carries about the same work), each exact in the rows of its
+    own panel and below and zero above. Returns (S, a tensor on L's
+    device, and the (n, len(S)) columns).
+
+    Both sweeps touch only the live prefix of S, in place: at panel step k
+    the columns below k + block. In the lower sweep (L X = I) the others
+    are zero in rows up to k + block, so their update would subtract
+    zeros; the upper sweep (L^T Z = X) stops each column at the top of its
+    own panel, whose rows above keep the lower sweep's zeros. Every rank
+    still takes part in every panel's broadcast. Each step's multiply-adds
+    add to the recorder's counter ``par.sweep_macs``."""
+    n_mp = axis_size(mesh, MP_AXIS)
+    nc = L_cols.shape[1]
+    S = _local_to_global_cols(mesh.get_local_rank(MP_AXIS), nc, block, n_mp,
+                              "cyclic")
+    S_t = torch.as_tensor(S, device=L_cols.device)
+    X = _eye_cols(n, S_t, L_cols)
+    for k in range(0, n, block):
+        panel = _broadcast_panel(mesh, L_cols, k, n, block, layout)
+        a = int(np.searchsorted(S, k + block))
+        if a:
+            X[k:k + block, :a] = torch.linalg.solve_triangular(
+                panel[:block], X[k:k + block, :a], upper=False)
+            X[k + block:, :a].addmm_(panel[block:], X[k:k + block, :a],
+                                     alpha=-1)
+            profiling.count("par.sweep_macs", (n - k - block) * block * a)
+    for k in range(n - block, -1, -block):
+        panel = _broadcast_panel(mesh, L_cols, k, n, block, layout)
+        a = int(np.searchsorted(S, k + block))
+        if a:
+            rhs = X[k:k + block, :a].addmm_(panel[block:].T,
+                                            X[k + block:, :a], alpha=-1)
+            X[k:k + block, :a] = torch.linalg.solve_triangular(
+                panel[:block].T, rhs, upper=True)
+            profiling.count("par.sweep_macs", (n - k - block) * block * a)
+    return S_t, X
+
+
+def _block_lower_matvec(B, S, y, block):
+    """This rank's share of K^-1 y from its block-lower columns ``B`` at the
+    global columns ``S`` (``_kinv_block_lower_cols``): B y[S] for the
+    entries in and below each column's panel, and, for their mirror images
+    above the diagonal, B's entries below each column's panel transposed
+    onto the rows S."""
+    rows = S.view(-1, block)  # the rows of each local panel's diagonal block
+    local = torch.arange(S.shape[0], device=B.device).view(-1, block)
+    diag = B[rows[:, :, None], local[:, None, :]]
+    v = B @ y[S]
+    v[S] += B.T @ y - torch.einsum("qst,qs->qt", diag, y[rows]).reshape(-1)
+    return v
+
+
 def make_sharded_cholesky(mesh, n: int, block: int | None = None,
                           layout: str = "block"):
     """Build ``f(K) -> L`` for (n, n) SPD inputs, factorized in column
@@ -288,10 +344,15 @@ def make_fully_sharded_nlml_value_and_grad(mesh, n: int,
       1. each rank assembles ITS columns of K_n (B1 on the card, F
          fidelities in one launch) plus the noise on its diagonal entries,
       2. distributed Cholesky (``_chol_cols_body``),
-      3. two distributed triangular solves give this rank's K_n^-1
-         columns; ``alpha = psum(Kinv_c y_c)`` and ``logdet =
-         psum(local log-diagonals)``,
-      4. the trace-identity contractions, psum'd (``sharded._sharded_grad``).
+      3. two distributed triangular sweeps give K_n^-1's block-lower part
+         at this rank's block-cyclic identity columns, whatever the layout
+         (``_kinv_block_lower_cols``); ``alpha`` is their psum'd product
+         with y, each entry below the diagonal panels used twice
+         (``_block_lower_matvec``), and ``logdet = psum(local
+         log-diagonals)``,
+      4. the trace-identity contractions over the block-lower part, each
+         entry below the diagonal panels weighted twice, psum'd
+         (``sharded._sharded_grad``).
 
     Per-rank memory: a few N^2/n_mp + O(N). ``layout="cyclic"`` gives each
     rank its block-cyclic columns, assembled directly (no permutation);
@@ -315,18 +376,16 @@ def make_fully_sharded_nlml_value_and_grad(mesh, n: int,
             with profiling.span("par.chol", device=dev):
                 L_cols = _chol_cols_body(mesh, K_cols, n, block, layout)
             with profiling.span("par.trisolve", device=dev):
-                Kinv_cols = _tri_solve_upper_body(
-                    mesh, L_cols, _tri_solve_lower_body(
-                        mesh, L_cols, _eye_cols(n, cols, X), n, block,
-                        layout), n, block, layout)
+                S, Kinv_cols = _kinv_block_lower_cols(mesh, L_cols, n,
+                                                      block, layout)
             logdet = 2.0 * psum(mesh, torch.sum(torch.log(L_cols[diag])))
             del L_cols
-            alpha = psum(mesh, Kinv_cols @ y[cols])
+            alpha = psum(mesh, _block_lower_matvec(Kinv_cols, S, y, block))
             val = (0.5 * torch.dot(y, alpha) + 0.5 * logdet
                    + 0.5 * n * _LOG2PI)
             with profiling.span("par.grad", device=dev):
-                grad = _sharded_grad(mesh, Kinv_cols, alpha, X, fid, cols,
-                                     params)
+                grad = _sharded_grad(mesh, Kinv_cols, alpha, X, fid, S,
+                                     params, block_lower=block)
         return val, grad
 
     return f

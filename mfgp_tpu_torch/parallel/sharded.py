@@ -117,7 +117,18 @@ def _eye_cols(n: int, cols: torch.Tensor, like: torch.Tensor):
     return eye
 
 
-def _sharded_grad(mesh, Kinv_cols, alpha, X, fid, cols, params):
+def _weigh_block_lower(W, cols, block):
+    """Weight W's block-lower columns ``cols`` (whole panels of width
+    ``block``) for a sum over the whole symmetric matrix, in place: each
+    entry twice below its column's panel, once in it, and not above."""
+    for q, p0 in enumerate(cols[::block].tolist()):
+        c = slice(q * block, (q + 1) * block)
+        W[:p0, c] = 0.0
+        W[p0 + block:, c] *= 2.0
+
+
+def _sharded_grad(mesh, Kinv_cols, alpha, X, fid, cols, params,
+                  block_lower=None):
     """The AR1 NLML gradient (rbf, rhos held fixed) from this rank's
     columns ``cols`` of K^-1 (``Kinv_cols``, (N, Nc), overwritten with
     those of W = K^-1 - alpha alpha^T): each rank's partial sums
@@ -132,11 +143,18 @@ def _sharded_grad(mesh, Kinv_cols, alpha, X, fid, cols, params):
     does: the JAX package takes the lengthscale term as ``sum x^2 s - sum
     x (A x)`` from row sums, which cancels in float32 for close points far
     from the origin (ROADMAP C5). The N x Nc terms are formed a block of
-    rows at a time."""
+    rows at a time.
+
+    With ``block_lower`` (a panel width) ``Kinv_cols`` holds K^-1's
+    block-lower part only (``chol._kinv_block_lower_cols``), and W is
+    weighted by ``_weigh_block_lower``: every T_m is symmetric, so the
+    sums are the whole matrix's."""
     N, D = X.shape
     F = params.variances.shape[0]
     Nc = cols.shape[0]
     W = Kinv_cols.sub_(alpha[:, None] * alpha[cols][None, :])
+    if block_lower:
+        _weigh_block_lower(W, cols, block_lower)
     Xc = X[cols]
     wf = _k.ar1_fidelity_weights(params.rhos, F)
     w_full, w_cols = wf[:, fid], wf[:, fid[cols]]

@@ -1597,6 +1597,61 @@ def test_sharded_grad_c5_inputs(nccl_mesh, dev, case):
                              g.log_noises), ref) <= 2e-3
 
 
+def _full_sweeps_evaluation(mesh, p, X, fid, y, block, jitter):
+    """The fully sharded NLML and gradient on a one-rank mesh with the
+    general sweeps over the full height of every identity column (K^-1
+    whole), as the fit computed them before its sweeps were cut to K^-1's
+    block-lower part."""
+    import math
+
+    from mfgp_tpu_torch.ops import kernels as tk
+    from mfgp_tpu_torch.parallel import chol, sharded
+
+    n = X.shape[0]
+    cols = torch.arange(n, device=X.device)
+    K = tcov.mf_cross_cov(p.variances, p.lengthscales, p.rhos, X, fid, X,
+                          fid, "rbf")
+    K[cols, cols] += tk.mf_noise_diag(fid, p.noises) + jitter
+    L = chol._chol_cols_body(mesh, K, n, block)
+    Kinv = chol._tri_solve_upper_body(mesh, L, chol._tri_solve_lower_body(
+        mesh, L, sharded._eye_cols(n, cols, X), n, block), n, block)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    del L, K
+    alpha = Kinv @ y
+    val = 0.5 * torch.dot(y, alpha) + 0.5 * logdet + 0.5 * n * math.log(
+        2.0 * math.pi)
+    return val, sharded._sharded_grad(mesh, Kinv, alpha, X, fid, cols, p)
+
+
+def test_fully_sharded_block_lower_route_on_the_card(nccl_mesh, dev):
+    """On the NCCL (1, 1) mesh at N=8,000, panels of 250, float32: the
+    fully sharded NLML and gradient from K^-1's block-lower part are no
+    further from the float64 reference (``nlml_rel``, ``grad_rel`` as the
+    sharded cell reads them) than the full sweeps composed here, plus
+    2^-20."""
+    from benchmark.reference import gp as ref
+    from mfgp_tpu_torch import parallel as par
+
+    X, fid, y, _, _, p = _parallel_problem(dev, N=8000)
+    v, g = par.make_fully_sharded_nlml_value_and_grad(
+        nccl_mesh, 8000, block=250, jitter=1e-6)(p, X, fid, y)
+    vf, gf = _full_sweeps_evaluation(nccl_mesh, p, X, fid, y, 250, 1e-6)
+    r = ref.nlml_grad(X, fid, y, dict(
+        variances=p.variances.double(), lengthscales=p.lengthscales.double(),
+        rhos=p.rhos.double(), noises=p.noises.double()), "rbf", 1e-6)
+    v64, g64 = float(r["value"]), ref.grad_vector(r)
+
+    def errors(val, grad):
+        flat = torch.cat([grad.log_variances, grad.log_lengthscales.reshape(
+            -1), grad.log_noises]).double()
+        return (abs(float(val) - v64) / abs(v64),
+                float(torch.max(torch.abs(flat - g64))
+                      / torch.max(torch.abs(g64))))
+
+    new, full = errors(v, g), errors(vf, gf)
+    assert all(a <= b + 2.0 ** -20 for a, b in zip(new, full)), (new, full)
+
+
 # the fully sharded NLML across four GPUs, as the nlml_sharded_n80k_4chip
 # cell runs it, at a size the test holds: 2 x 2 tiles of 2,000 points
 FOUR_GPU_N = 8000

@@ -146,6 +146,29 @@ def _mesh_work(mesh, inp, out, tag):
             mesh, 64, block=b, jitter=1e-8, layout=layout)(
                 r, t["fs_X"], t["fs_fid"], t["fs_y"])
         out[f"fully_{layout}{tag}"] = (float(v), [_np(a) for a in g])
+        out[f"kinv_{layout}{tag}"] = _kinv_work(mesh, t["K64"], 64, b,
+                                                layout)
+
+
+def _kinv_work(mesh, K, n, block, layout):
+    """This rank's block-lower K^-1 columns from the distributed factor of
+    K in ``layout``: (its mp index, their global columns, the columns, the
+    recorder's ``par.sweep_macs``)."""
+    from mfgp_tpu_torch.parallel import chol
+    from mfgp_tpu_torch.parallel.mesh import MP_AXIS
+    from mfgp_tpu_torch.utils import profiling
+
+    my = chol._my_cols(mesh, n, block, layout)
+    L = chol._chol_cols_body(mesh, K[:, my].contiguous(), n, block, layout)
+    profiling.reset()
+    profiling.enable()
+    try:
+        cols, B = chol._kinv_block_lower_cols(mesh, L, n, block, layout)
+    finally:
+        profiling.enable(False)
+    macs = profiling.snapshot()["counters"].get("par.sweep_macs")
+    profiling.reset()
+    return mesh.get_local_rank(MP_AXIS), _np(cols), _np(B), macs
 
 
 def _rig():
@@ -216,6 +239,13 @@ def _work(rank, inp):
             inp["fs_fid"]), f32[1])
     out["fit_memory_scaled"] = ([_np(a) for a in p], hist, float(val))
     out["default_panel"] = _default_panel_work(m14, inp)
+    K1000 = torch.as_tensor(inp["K1000"])
+    for layout in ("block", "cyclic"):
+        out[f"kinv_{layout}_mp4"] = _kinv_work(m14, K1000, 1000, 250, layout)
+    lower, upper = par.make_sharded_tri_solves(m14, 1000, 40, block=250)
+    L1000 = torch.linalg.cholesky(K1000)
+    X1 = lower(L1000, torch.as_tensor(inp["B1000"]))
+    out["tri_mp4"] = (_np(X1), _np(upper(L1000, X1)))
     _ensemble_work(m4, out)
     return out
 
@@ -223,7 +253,8 @@ def _work(rank, inp):
 def _default_panel_work(mesh, inp):
     """The fully sharded NLML at N=1,000 over mp=4 at the default panel
     width, with the recorder on: the value, the gradient, the span records
-    (name, id, parent) and the collectives' bytes, counted both ways."""
+    (name, id, parent), the collectives' bytes, counted both ways, and the
+    sweeps' multiply-adds (``par.sweep_macs``)."""
     from mfgp_tpu_torch import parallel as par
     from mfgp_tpu_torch.parallel import mesh as pm
     from mfgp_tpu_torch.utils import profiling
@@ -239,10 +270,12 @@ def _default_panel_work(mesh, inp):
         profiling.enable(False)
     recs = [(r["name"], r["id"], r["parent"])
             for r in profiling.RECORDER.records()]
-    counted = profiling.snapshot()["counters"].get("par.collective_bytes")
+    counters = profiling.snapshot()["counters"]
     profiling.reset()
     return dict(vg=(float(v), [_np(a) for a in g]), records=recs,
-                counted=counted, bytes=pm.COLLECTIVES["bytes"])
+                counted=counters.get("par.collective_bytes"),
+                bytes=pm.COLLECTIVES["bytes"],
+                sweep_macs=counters.get("par.sweep_macs"))
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +349,9 @@ def _inputs() -> dict:
         A = rng.normal(size=(n, n))
         inp[f"K{n}"] = A @ A.T + n * np.eye(n)
     inp["B128"] = rng.normal(size=(128, 128))
+    A = rng.normal(size=(1000, 1000))
+    inp["K1000"] = A @ A.T + 1000 * np.eye(1000)
+    inp["B1000"] = rng.normal(size=(1000, 40))
     inp["dp_X"] = rng.uniform(0, 1, (1000, D)) * [30.0, 55.0, 4.5]
     inp["dp_fid"] = rng.integers(0, 3, 1000)
     inp["dp_y"] = np.sin(inp["dp_X"][:, 0] / 7) + 0.1 * rng.normal(size=1000)
@@ -581,6 +617,91 @@ def test_sharded_tri_solves_match_scipy_and_jax(runs, tag):
             X2, sla.solve_triangular(L.T, X1, lower=False), atol=1e-12)
         np.testing.assert_allclose(X1, ref[f"tri{tag}"][0], atol=1e-12)
         np.testing.assert_allclose(X2, ref[f"tri{tag}"][1], atol=1e-12)
+
+
+def test_sharded_tri_solves_mp4_match_scipy(runs):
+    """The general sweeps (arbitrary right-hand sides, full height) over
+    mp=4 at N=1,000, panels of 250, == scipy's triangular solves."""
+    import scipy.linalg as sla
+
+    ranks, _, _, inp = runs
+    L = np.linalg.cholesky(inp["K1000"])
+    X1_ref = sla.solve_triangular(L, inp["B1000"], lower=True)
+    for r in ranks:
+        X1, X2 = r["tri_mp4"]
+        np.testing.assert_allclose(X1, X1_ref, atol=1e-12)
+        np.testing.assert_allclose(
+            X2, sla.solve_triangular(L.T, X1_ref, lower=False), atol=1e-12)
+
+
+# (mp, n, panel, result key; the key names L's layout): the mp=2 meshes at
+# the JAX test's panel widths, and mp=4 at N=1,000 with panels of 250
+KINV_CASES = [(2, 64, 16, "kinv_block2"), (2, 64, 8, "kinv_cyclic2"),
+              (2, 64, 16, "kinv_block4"), (2, 64, 8, "kinv_cyclic4"),
+              (4, 1000, 250, "kinv_block_mp4"),
+              (4, 1000, 250, "kinv_cyclic_mp4")]
+
+
+def _kinv_ranks(ranks, key):
+    """The results ``key`` of every rank that computed it."""
+    return [r[key] for r in ranks if key in r]
+
+
+def _sweep_macs(n, n_mp, block, idx):
+    """The closed form of rank ``idx``'s block-lower sweeps: each of its
+    block-cyclic panels p (of n / block) is live in both sweeps while the
+    panel step's trailing rows remain, block^3 (P - p)(P - p - 1) / 2 for
+    each sweep, P = n / block."""
+    P = n // block
+    return block ** 3 * sum((P - p) * (P - p - 1)
+                            for p in range(idx, P, n_mp))
+
+
+@pytest.mark.parametrize("n_mp,n,block,key", KINV_CASES,
+                         ids=[c[-1] for c in KINV_CASES])
+def test_block_lower_kinv_matches_the_dense_inverse(runs, n_mp, n, block,
+                                                     key):
+    """Each rank's block-lower K^-1 columns, from either layout of L, are
+    its block-cyclic identity columns, equal the dense inverse's entries
+    in the panels at and below each column's own to 1e-12 in float64, and
+    are exactly zero above."""
+    from mfgp_tpu_torch.parallel.chol import _local_to_global_cols
+
+    ranks, _, _, inp = runs
+    Kinv = np.linalg.inv(inp[f"K{n}"])
+    got = _kinv_ranks(ranks, key)
+    assert len(got) == (2 if key.endswith("2") else 4)
+    for idx, cols, B, _ in got:
+        np.testing.assert_array_equal(cols, _local_to_global_cols(
+            idx, n // n_mp, block, n_mp, "cyclic"))
+        live = (np.arange(n)[:, None] // block) >= (cols[None, :] // block)
+        np.testing.assert_allclose(B[live], Kinv[:, cols][live], rtol=0,
+                                   atol=1e-12)
+        assert not np.any(B[~live])
+
+
+@pytest.mark.parametrize("n_mp,n,block,key", KINV_CASES,
+                         ids=[c[-1] for c in KINV_CASES])
+def test_sweep_macs_match_the_closed_form(runs, n_mp, n, block, key):
+    """The recorder's ``par.sweep_macs`` is the closed form of the
+    block-lower sweeps' multiply-adds on each rank, and the same from
+    either layout of L at one panel width."""
+    ranks, *_ = runs
+    for idx, _, _, macs in _kinv_ranks(ranks, key):
+        assert macs == _sweep_macs(n, n_mp, block, idx)
+    if n_mp == 4:
+        for r in ranks:
+            assert r["kinv_block_mp4"][3] == r["kinv_cyclic_mp4"][3]
+
+
+def test_fully_sharded_counts_its_sweep_macs(runs):
+    """The fully sharded NLML at N=1,000 over mp=4 (panels of 250, block
+    layout) counts its sweeps' closed form on each rank: together 20 of
+    the full-height sweeps' 48 panel cubes."""
+    ranks, *_ = runs
+    got = [r["default_panel"]["sweep_macs"] for r in ranks]
+    assert got == [_sweep_macs(1000, 4, 250, i) for i in range(4)]
+    assert sum(got) == 20 * 250 ** 3
 
 
 def test_panel_utilization_and_permutation_match_jax(runs):
